@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py
 
-Three phases, any failure exits non-zero (no phase is caught, nothing
+Four phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
-   kernel of the main path built from `ray_tpu_torch/csrc/` (one `nvcc`
-   per source, all at once) with ptxas's register/spill report.
+   kernel of the port's paths built from `ray_tpu_torch/csrc/` (one
+   `nvcc` per library, all at once) with ptxas's register/spill report.
 2. Kernels vs plain: each kernel against its plain PyTorch version on
-   the same inputs, at the main path's shapes and one larger shape; max
+   the same inputs, at the main paths' shapes and one larger shape; max
    error against the stated tolerance, the launch count, and the time
    per call of kernel and plain version (CUDA events over many calls
-   after warm-up), plus the kernel's device-only time (profiler).
-3. Trainer: `IMPALATrainer(config=...).train()` on SyntheticAtari-v0
-   (84x84x4 uint8 frames, 6 actions) with the full-width Nature CNN
-   (bf16 trunk), 32 envs x 50-step fragments, 1600-row updates. Every
-   kernel's launch count is set to 0 just before and read just after;
-   each must have launched (the sampling tail once per env step,
-   V-trace once per update). Then one learner update of the trained
-   weights on the card is held against the same update on the CPU.
+   after warm-up), plus the kernel's device-only time (profiler). The
+   k-step sampling kernel at k=1 is also held equal to the single-step
+   one.
+3. Local-mode trainer: `IMPALATrainer(config=...).train()` on
+   SyntheticAtari-v0 (84x84x4 uint8 frames, 6 actions) with the
+   full-width Nature CNN (bf16 trunk), 32 envs x 50-step fragments,
+   1600-row updates. Every kernel's launch count is set to 0 just before
+   and read just after; each must have launched (the sampling tail once
+   per env step, V-trace once per update). Then one learner update of
+   the trained weights on the card is held against the same update on
+   the CPU.
+4. Sebulba trainer: `IMPALATrainer` with 2 inline actors x 64 envs of
+   SpriteAtari-v0 (84x84x1 frames uploaded as deltas, stacked to 4 on
+   the card), 2 env groups, 25-step fragments (1600-row updates), once
+   at `sebulba_onchip_steps` 1 and once at 5. Launch counts are set to 0
+   before each run and read after the actors have stopped: the
+   observation kernel once per group per env step, the k-step sampling
+   kernel once per group per selection window, V-trace once per update.
+   The frames and stacks rebuilt on the card must equal the envs' own.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -45,6 +56,26 @@ F32_OPS_PER_S = 67e12
 # Main-path shapes: 32 envs x 50-step fragments, 6 actions.
 NUM_ENVS, FRAGMENT, NUM_ACTIONS = 32, 50, 6
 TRAIN_ITERS = 4  # timed iterations; one more runs under the profiler
+
+# The Sebulba path: bench.py's host-env Sebulba legs cut to 2 actors.
+SEB_ACTORS, SEB_ENVS, SEB_FRAGMENT, SEB_GROUPS = 2, 64, 25, 2
+SEB_ITER_S = 2.0      # min_iter_time_s of each Sebulba iteration
+SEB_ITERS = {1: 4, 5: 2}  # iterations per k (the first is warm-up)
+
+SEBULBA_CONFIG = {
+    "env": "SpriteAtari-v0",
+    "num_workers": 0,
+    "num_inline_actors": SEB_ACTORS,
+    "num_envs_per_worker": SEB_ENVS,
+    "rollout_fragment_length": SEB_FRAGMENT,
+    "device_frame_stack": 4,
+    "obs_delta": "auto",
+    "sebulba_env_groups": SEB_GROUPS,
+    "lr": 6e-4,
+    "min_iter_time_s": SEB_ITER_S,
+    "seed": 0,
+    "device": "cuda",
+}
 
 TRAINER_CONFIG = {
     "env": "SyntheticAtari-v0",
@@ -211,6 +242,174 @@ def check_categorical(B, A, timed):
     return row
 
 
+def obs_apply_inputs(n, K, S, mode, seed, hw=84 * 84):
+    """K3 inputs on the card for one mode: "delta" (packed delta rows,
+    a quarter of the rows replaced whole, a few done rows, pad entries
+    and out-of-range indices), or "frame" (an uploaded frame batch and a
+    done upload). S=0: no stack."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    side = int(round(hw ** 0.5))
+    dev = "cuda"
+    args = {"frame_shape": (side, side, 1)}
+    frames = rng.integers(0, 256, (n, hw), dtype=np.uint8)
+    done = rng.random(n) < 0.1
+    if mode == "delta":
+        idx = np.stack([rng.permutation(hw)[:K] for _ in range(n)])
+        idx[:, ::7] = hw  # pad entries
+        idx = idx.astype(np.uint16)
+        val = rng.integers(0, 256, (n, K), dtype=np.uint8)
+        packed = np.concatenate([idx.view(np.uint8), val,
+                                 done.astype(np.uint8)[:, None]], axis=1)
+        m = max(1, n // 4)
+        b = 1 << (m - 1).bit_length()
+        rows = np.full(b, n, np.int32)
+        rows[:m] = rng.permutation(n)[:m]
+        args.update(
+            packed=torch.from_numpy(np.ascontiguousarray(packed)).to(dev),
+            rows=torch.from_numpy(rows).to(dev),
+            fulls=torch.from_numpy(rng.integers(
+                0, 256, (b, hw), dtype=np.uint8)).to(dev))
+    else:
+        args["done"] = torch.from_numpy(done).to(dev)
+    if S:
+        args["stack"] = torch.from_numpy(rng.integers(
+            0, 256, (n, side, side, S), dtype=np.uint8)).to(dev)
+    return torch.from_numpy(frames).to(dev), args
+
+
+def obs_apply_bytes(frames, args):
+    """Bytes K3 must move for these inputs: every input byte it needs
+    read once, every output byte it changes written once.
+
+    - packed (delta mode) or done (frame mode), and `rows`, read whole;
+    - `fulls`: only the real rows (pad rows of the bucket are not read);
+    - frames read except the rows replaced whole; frames written: the
+      replaced rows whole plus the in-range delta entries of the others;
+    - the old stack read only for rows that are not done, and whole:
+      channel-last, every 32-byte sector holds all S channels of its
+      pixels, so channels 1..S-1 cannot be read without channel 0;
+    - the observation written whole.
+    """
+    n = frames.shape[0]
+    hw = frames.numel() // n
+    total = 0
+    replaced = 0
+    if "rows" in args:
+        rows = args["rows"].cpu()
+        real = rows[(rows >= 0) & (rows < n)]
+        replaced = len(real)
+        total += args["rows"].numel() * args["rows"].element_size()
+        total += replaced * hw                    # fulls read
+    if "packed" in args:
+        packed = args["packed"].cpu()
+        total += packed.numel()
+        K = (packed.shape[1] - 1) // 3
+        idx = packed[:, 0:2 * K:2].long() | (packed[:, 1:2 * K:2].long()
+                                            << 8)
+        keep = idx < hw
+        if replaced:
+            keep[real.long()] = False
+        done = packed[:, -1] != 0
+        total += (n - replaced) * hw              # frames read
+        total += replaced * hw + int(keep.sum())  # frames written
+    else:
+        done = args["done"].cpu() != 0
+        total += args["done"].numel()
+        total += n * hw                           # frames read
+    if "stack" in args:
+        row_bytes = args["stack"][0].numel()
+        total += int((~done).sum()) * row_bytes   # old stack read
+        total += n * row_bytes                    # observation written
+    else:
+        total += n * hw
+    return total
+
+
+def check_obs_apply(n, K, S, mode, timed):
+    """K3 against its plain version: the observation and the updated
+    frames must be equal bit for bit."""
+    import torch
+    from ray_tpu_torch.rllib.evaluation import device_sampler as ds
+    frames, args = obs_apply_inputs(n, K, S, mode, seed=n + K + S)
+    shape = args.pop("frame_shape")
+    f_kernel, f_plain = frames.clone(), frames.clone()
+    got = ds.apply_obs(f_kernel, shape, **args)
+    want = ds._apply_obs_plain(f_plain, shape, **args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(f_kernel, f_plain)):
+        raise AssertionError(
+            f"obs_apply kernel disagrees with plain at n={n} K={K} S={S} "
+            f"{mode}: {int((got != want).sum())} obs bytes, "
+            f"{int((f_kernel != f_plain).sum())} frame bytes differ")
+    row = {"n": n, "K": K, "S": S, "mode": mode, "max_abs_err": 0,
+           "bytes": obs_apply_bytes(frames, args)}
+    if timed:
+        row["ms"] = time_call(
+            lambda: ds.apply_obs(f_kernel, shape, **args), reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: ds._apply_obs_plain(f_plain, shape, **args), reps=500)
+        row["device_ms"] = device_ms(
+            lambda: ds.apply_obs(f_kernel, shape, **args),
+            "obs_apply_kernel")
+    log(f"  obs_apply n={n} K={K} S={S} {mode}: equal bit for bit"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+    return row
+
+
+def check_categorical_k(k, N, A, timed):
+    """K2k against its plain version (actions equal, logp within
+    LOGP_TOL), and at k=1 against K2 (both outputs equal bit for bit)."""
+    import torch
+    from ray_tpu_torch.models import distributions
+    g = torch.Generator(device="cuda").manual_seed(k * N * A)
+    logits = torch.randn(N, A, generator=g, device="cuda") * 3.0
+    u = torch.rand(k, N, A, generator=g, device="cuda")
+    err = 0.0
+    for explore in (True, False):
+        uu = u if explore else None
+        actions, logp = distributions.sample_logp_k(logits, uu, explore, k)
+        want_a, want_logp = distributions._sample_logp_k_plain(
+            logits, uu, k, explore)
+        torch.cuda.synchronize()
+        if not torch.equal(actions, want_a):
+            raise AssertionError(
+                f"categorical_k kernel picks other actions than plain at "
+                f"k={k} N={N} A={A} explore={explore}: "
+                f"{int((actions != want_a).sum())} differ")
+        e = float((logp - want_logp).abs().max())
+        if not e <= LOGP_TOL:
+            raise AssertionError(
+                f"categorical_k kernel logp err {e} > {LOGP_TOL}")
+        err = max(err, e)
+        if k == 1:
+            a1, l1 = distributions.sample_logp(
+                logits, u[0] if explore else None, explore)
+            if not (torch.equal(a1, actions[0]) and torch.equal(l1,
+                                                                logp[0])):
+                raise AssertionError(
+                    "categorical_k at k=1 differs from categorical")
+    row = {"k": k, "N": N, "A": A, "max_abs_err": err}
+    if timed:
+        row["ms"] = time_call(
+            lambda: distributions.sample_logp_k(logits, u, True, k),
+            reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: distributions._sample_logp_k_plain(logits, u, k, True),
+            reps=500)
+        row["device_ms"] = device_ms(
+            lambda: distributions.sample_logp_k(logits, u, True, k),
+            "categorical_sample_k_kernel")
+    log(f"  categorical_k k={k} N={N} A={A}: actions equal, logp "
+        f"max_abs_err={err:.3e} (tol {LOGP_TOL})"
+        + (", equal to categorical at k=1" if k == 1 else "")
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+    return row
+
+
 # ---------------------------------------------------------------------
 # phase 3: the trainer
 # ---------------------------------------------------------------------
@@ -371,6 +570,203 @@ def check_update_against_cpu(weights):
     log(f"  card vs CPU update (f32, TF32 off): {json.dumps(pairs)}")
 
 
+def transfer_shares(d, wall_s, actors):
+    """Per-step upload bytes, the share of each actor's wall time spent
+    waiting for actions and stepping envs, and the mean selection lag,
+    from summed transfer-stat deltas over `wall_s` seconds."""
+    return {
+        "bytes_h2d_per_step": d["bytes_h2d"] / max(1, d["steps"]),
+        "action_fetch_pct": 100 * d["t_fetch_s"] / (wall_s * actors),
+        "env_step_pct": 100 * d["t_env_s"] / (wall_s * actors),
+        "apply_pct": 100 * d["t_apply_s"] / (wall_s * actors),
+        "select_pct": 100 * d["t_select_s"] / (wall_s * actors),
+        "policy_lag_mean": d["policy_lag_sum"] / max(1, d["steps"]),
+    }
+
+
+class TimedLock:
+    """The policy's update lock with a host clock on the inline actors'
+    acquisitions (this script's instrumentation): how long the actors
+    wait for the learner to finish enqueueing an update."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.actor_wait_s = 0.0
+
+    def __enter__(self):
+        import threading
+        t0 = time.perf_counter()
+        self._lock.acquire()
+        if threading.current_thread().name.startswith("inline-actor"):
+            self.actor_wait_s += time.perf_counter() - t0
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
+def time_sampler_dispatch(sampler):
+    """Wrap one sampler's two dispatch methods with host-clock timers
+    (this script's instrumentation, not the port's): the time its actor
+    spends enqueueing the obs apply (upload + K3) and the selection
+    window (forward + K2k + the action copy). Returns the dict the
+    timers add to."""
+    acc = {"t_apply_s": 0.0, "t_select_s": 0.0}
+    for key, name in (("t_apply_s", "_dispatch_apply"),
+                      ("t_select_s", "_dispatch_select")):
+        inner = getattr(sampler, name)
+
+        def timed(g, _inner=inner, _key=key):
+            t0 = time.perf_counter()
+            _inner(g)
+            acc[_key] += time.perf_counter() - t0
+        setattr(sampler, name, timed)
+    return acc
+
+
+def run_sebulba(k):
+    """Phase 4 at one `sebulba_onchip_steps`: the Sebulba trainer with
+    every launch count at 0 before it is built and read after its actors
+    have stopped. Returns (summary, launches)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
+    from ray_tpu_torch.rllib.evaluation import device_sampler as ds
+
+    kernels = {"vtrace": vtrace.VTRACE_KERNEL,
+               "categorical": distributions.CATEGORICAL_KERNEL,
+               "categorical_k": distributions.CATEGORICAL_K_KERNEL,
+               "obs_apply": ds.OBS_APPLY_KERNEL}
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = IMPALATrainer(config=dict(SEBULBA_CONFIG,
+                                        sebulba_onchip_steps=k))
+    opt = trainer.optimizer
+    samplers = [a.sampler for a in opt._inline_actors]
+    log(f"  k={k}: trainer built in {time.perf_counter() - t0:.2f} s: "
+        f"{len(samplers)} actors x {len(samplers[0].groups)} groups x "
+        f"{samplers[0].groups[0].n} envs, delta {samplers[0].delta}, "
+        f"stack {samplers[0].frame_stack}, train batch "
+        f"{trainer.config['train_batch_size']}")
+    if not all(s.delta and s.frame_stack == 4 and s.k == k
+               for s in samplers):
+        raise AssertionError("Sebulba samplers are not in delta + stack "
+                             f"mode at k={k}")
+    host_s = {s: time_sampler_dispatch(s) for s in samplers}
+    lock = trainer.get_policy()._update_lock = TimedLock(
+        trainer.get_policy()._update_lock)
+    learner = opt.learner
+    rows, prof = [], None
+    try:
+        for i in range(SEB_ITERS[k] + (1 if k == 1 else 0)):
+            profiled = k == 1 and i == SEB_ITERS[k]
+            before = [s.transfer_stats() | host_s[s] for s in samplers]
+            wait0 = lock.actor_wait_s
+            g0 = (learner.grad_timer.total, learner.grad_timer.count)
+            t0 = time.perf_counter()
+            if profiled:
+                result, prof = profile_iteration(trainer)
+            else:
+                result = trainer.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = [s.transfer_stats() | host_s[s] for s in samplers]
+            steps = result["timesteps_this_iter"]
+            loss = result["info"]["learner"]["total_loss"]
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite loss at k={k} iter {i}")
+            d = {key: sum(a[key] - b[key] for a, b in zip(after, before))
+                 for key in ("bytes_h2d", "t_fetch_s", "t_env_s", "steps",
+                             "policy_lag_sum", "t_apply_s", "t_select_s")}
+            updates = learner.grad_timer.count - g0[1]
+            row = {"s": dt, "steps": steps, "loss": loss,
+                   "updates": updates, "deltas": d,
+                   "grad_ms": 1e3 * (learner.grad_timer.total - g0[0])
+                   / max(1, updates),
+                   **transfer_shares(d, dt, len(samplers))}
+            d["t_lock_s"] = lock.actor_wait_s - wait0
+            row["lock_wait_pct"] = 100 * d["t_lock_s"] / (dt * len(samplers))
+            log(f"  k={k} iter {i}{' (profiled)' if profiled else ''}: "
+                f"{dt:.3f} s, {steps} env steps, {steps / dt:.1f} env "
+                f"steps/s, {updates} updates, learner grad "
+                f"{row['grad_ms']:.2f} ms/update, "
+                f"{row['bytes_h2d_per_step']:.1f} B/step up, fetch "
+                f"{row['action_fetch_pct']:.1f}%, env "
+                f"{row['env_step_pct']:.1f}%, apply "
+                f"{row['apply_pct']:.1f}%, select "
+                f"{row['select_pct']:.1f}% (update-lock wait "
+                f"{row['lock_wait_pct']:.1f}%), lag "
+                f"{row['policy_lag_mean']:.3f}, total_loss {loss:.4f}")
+            if not profiled:
+                rows.append(row)
+    finally:
+        trainer.stop()
+    if any(a.is_alive() for a in opt._inline_actors) or learner.is_alive():
+        raise AssertionError("Sebulba threads still running after stop()")
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    # Launch counts: each group's pipeline was primed once (one apply,
+    # one select) and then ran one apply per env step and one select per
+    # window; the actors stop at fragment ends, so every consumed window
+    # was followed by the next one's dispatch.
+    want_apply = sum(len(s.groups) + s.steps_total // s.groups[0].n
+                     for s in samplers)
+    want_select = sum(len(s.groups) + s.fetch_waits for s in samplers)
+    want_updates = learner.grad_timer.count
+    checks = {"obs_apply": want_apply, "categorical_k": want_select,
+              "vtrace": want_updates, "categorical": 0}
+    for name, want in checks.items():
+        if launches[name] != want:
+            raise AssertionError(
+                f"k={k}: {name} kernel launched {launches[name]} times, "
+                f"the path ran it {want} times")
+    if min(want_apply, want_select, want_updates) <= 0:
+        raise AssertionError(f"k={k}: a kernel of the path never ran")
+
+    # The rebuilt observations: each group's retained frames and its
+    # newest stack channel equal the env's canonical frames.
+    for s in samplers:
+        for g in s.groups:
+            canon = torch.from_numpy(np.ascontiguousarray(
+                g.env.inner._frames[:, :-1]))
+            frames = g.frames_d.cpu()
+            newest = g.obs_next[..., -1].reshape(g.n, -1).cpu()
+            if not (torch.equal(frames, canon)
+                    and torch.equal(newest, canon)):
+                raise AssertionError(
+                    f"k={k}: device frames differ from the env's own")
+    steady = rows[1:]
+    steady_s = sum(r["s"] for r in steady)
+    summary = {
+        "k": k,
+        "iterations": len(rows) + (1 if prof else 0),
+        "iter_s": [round(r["s"], 4) for r in rows],
+        "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+        / steady_s,
+        "learner_grad_ms_steady_mean": sum(
+            r["grad_ms"] * r["updates"] for r in steady) / max(1, sum(
+                r["updates"] for r in steady)),
+        "updates_steady": sum(r["updates"] for r in steady),
+        "transfer_steady": transfer_shares(
+            {key: sum(r["deltas"][key] for r in steady)
+             for key in steady[0]["deltas"]}, steady_s, len(samplers))
+        | {"lock_wait_pct": 100 * sum(r["deltas"]["t_lock_s"]
+                                      for r in steady)
+           / (steady_s * len(samplers))},
+        "transfer_total": opt.stats()["transfer"],
+        "max_memory_allocated_bytes": peak,
+        "launches": launches,
+        "profiled_iteration": prof,
+    }
+    log(f"  sebulba summary k={k}: {json.dumps(summary)}")
+    return summary, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -382,6 +778,7 @@ def main():
     from ray_tpu_torch._private import cuda_build
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import vtrace
+    from ray_tpu_torch.rllib.evaluation import device_sampler
 
     card = card_line()
     log(f"card: {card}")
@@ -390,14 +787,17 @@ def main():
         f"count {torch.cuda.device_count()}")
 
     log("phase 1: build")
-    kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL]
+    kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
+               distributions.CATEGORICAL_K_KERNEL,
+               device_sampler.OBS_APPLY_KERNEL]
     t0 = time.perf_counter()
     reports = cuda_build.build_all(kernels, verbose=True)
-    log(f"  built {len(kernels)} kernels in "
+    log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in reports.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line \
+                    or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain")
@@ -408,10 +808,29 @@ def main():
     check_categorical(4096, 18, timed=False)
     k1_bound = bound_ms(4 * (6 * T * B + B), 17 * T * B)
     k2_bound = bound_ms(4 * (2 * B * A) + 8 * B + 4 * B, 9 * B * A + 3 * B)
+    # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
+    # stack 4) in every mode, then at a larger shape.
+    n_group = SEB_ENVS // SEB_GROUPS
+    k3 = check_obs_apply(n_group, 128, 4, "delta", timed=True)
+    check_obs_apply(n_group, 0, 4, "frame", timed=False)
+    check_obs_apply(n_group, 128, 0, "delta", timed=False)
+    check_obs_apply(512, 1024, 4, "delta", timed=False)
+    # K3 moves bytes and does no arithmetic of a type in the peak table.
+    k3_bound = bound_ms(k3["bytes"], 0)
+    k2k = check_categorical_k(1, n_group, A, timed=True)
+    check_categorical_k(5, n_group, A, timed=True)
+    check_categorical_k(8, 4096, 18, timed=False)
+    k2k_bound = bound_ms(4 * n_group * A + 4 * n_group * A + 12 * n_group,
+                         9 * n_group * A + 3 * n_group)
 
-    log("phase 3: IMPALATrainer at full width")
+    log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
     check_update_against_cpu(weights)
+
+    log("phase 4: IMPALATrainer at full width, Sebulba inline actors")
+    seb = {k: run_sebulba(k) for k in (1, 5)}
+    seb_launches = {name: sum(seb[k][1][name] for k in seb)
+                    for name in ("obs_apply", "categorical_k")}
 
     kernels_line = {"kernels": [
         {"name": "vtrace", "route": "cuda",
@@ -428,6 +847,22 @@ def main():
          "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "categorical_sample_k", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/categorical.cu",
+         "replaces": "ray_tpu/rllib/evaluation/device_sampler.py:257",
+         "launches": seb_launches["categorical_k"],
+         "max_abs_err": k2k["max_abs_err"],
+         "ms": k2k["ms"], "plain_ms": k2k["plain_ms"],
+         "bound_ms": k2k_bound[0], "bound_by": k2k_bound[1],
+         "library_ms": None},
+        {"name": "obs_apply", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/obs_apply.cu",
+         "replaces": "ray_tpu/rllib/evaluation/device_sampler.py:228",
+         "launches": seb_launches["obs_apply"],
+         "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "library_ms": None},
     ]}
     log(json.dumps(kernels_line))

@@ -4,7 +4,8 @@ Each kernel source in `ray_tpu_torch/csrc/` is one `.cu` file with a
 plain C interface (no PyTorch headers). It is compiled by `nvcc` into
 its own shared library for Hopper (`sm_90a`) at first use and loaded
 with `ctypes`; a small file builds in seconds, where a PyTorch
-extension build takes minutes. Libraries land in `ray_tpu_torch/_build/`
+extension build takes minutes. Kernels whose entry points live in one
+source share its one library. Libraries land in `ray_tpu_torch/_build/`
 (listed in `.gitignore`) under a name that hashes the source and the
 flags, so an edited source never loads a stale library. Compilation
 writes a temporary file and renames it into place, so two processes
@@ -32,6 +33,9 @@ BUILD_DIR = _PKG / "_build"
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Serializes first-use builds and loads: two kernels of one source, first
+# launched from two threads at once, run one nvcc between them.
+_BUILD_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -57,11 +61,12 @@ def find_nvcc() -> str:
 
 
 class CudaKernel:
-    """One kernel library: its source, its C entry point, a launch count.
+    """One kernel: its source, its C entry point, a launch count.
 
-    `launches` is a plain integer that the kernel's Python wrapper adds
-    one to each time it launches the kernel, and nowhere else, so a run
-    can show which kernels its path went through.
+    `launches` is an integer that the kernel's Python wrapper adds one
+    to (under a lock: actor threads launch concurrently) each time it
+    launches the kernel, and nowhere else, so a run can show which
+    kernels its path went through.
     """
 
     def __init__(self, name: str, source: str, symbol: str,
@@ -78,7 +83,8 @@ class CudaKernel:
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
+        return BUILD_DIR / (f"lib{self.source.stem}-"
+                            f"{digest.hexdigest()[:16]}.so")
 
     def compile_command(self, out: Path, verbose: bool = False) -> List[str]:
         cmd = [find_nvcc(), *NVCC_FLAGS]
@@ -117,7 +123,7 @@ class CudaKernel:
     def fn(self):
         """The C entry point, building the library first if needed."""
         if self._fn is None:
-            with self._lock:
+            with _BUILD_LOCK:
                 if self._fn is None:
                     self.finish_build(self.start_build())
                     lib = ctypes.CDLL(str(self.library_path()))
@@ -141,17 +147,24 @@ class CudaKernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: {msg} "
                 f"(cudaError {code})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def build_all(kernels: Iterable[CudaKernel], verbose: bool = False
               ) -> Dict[str, str]:
-    """Build every kernel not yet built, one `nvcc` per source, all
-    started together. Returns {name: compiler output} (with
-    `verbose=True`, ptxas's register/shared-memory/spill report)."""
-    kernels = list(kernels)
-    procs = [(k, k.start_build(verbose)) for k in kernels]
-    return {k.name: k.finish_build(p) for k, p in procs}
+    """Build every kernel library not yet built, one `nvcc` per source,
+    all started together. Returns {source file name: compiler output}
+    (with `verbose=True`, ptxas's register/shared-memory/spill report
+    for every entry point in the source)."""
+    procs = {}
+    with _BUILD_LOCK:
+        for k in kernels:
+            path = k.library_path()
+            if path not in procs:
+                procs[path] = (k, k.start_build(verbose))
+        return {k.source.name: k.finish_build(p)
+                for k, p in procs.values()}
 
 
 def stream_handle(tensor) -> int:

@@ -21,6 +21,18 @@
 // shuffles in registers; one launch yields both outputs, where the plain
 // version launches about ten small PyTorch kernels. The plain version is
 // `_sample_logp_plain` in models/distributions.py.
+//
+// K2k, `categorical_sample_k`: the k-step form. Replaces the `lax.scan`
+// over `jax.random.split(rng, k)` in `select_fn`
+// (ray_tpu/rllib/evaluation/device_sampler.py `_build_fns`): k draws per
+// env from ONE distribution (the window-head logits [N, A]) with k
+// independent uniform rows [k, N, A] -> actions and logp [k, N]. One warp
+// per (j, n) output row, running the same per-row code as K2, so k=1
+// equals K2 exactly. Bound: launch latency at the Sebulba shape (k<=5,
+// N=32, A=6: under 5 KB moved); at k=8, N=4096, A=18 the 2.4 MB of
+// uniforms make it a bytes-bound kernel (~0.7 us at 3.35 TB/s). The
+// logits row is re-read by each of the k warps and stays in L1/L2. Its
+// plain version is `_sample_logp_k_plain`.
 
 #include <cfloat>
 #include <cmath>
@@ -32,17 +44,15 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 4;
 
-__global__ void categorical_sample_kernel(const float* __restrict__ logits,
-                                          const float* __restrict__ u,
-                                          int64_t* __restrict__ actions,
-                                          float* __restrict__ logp, int B,
-                                          int A, int explore) {
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= B) return;  // whole warps leave together
-  const float* l = logits + static_cast<size_t>(row) * A;
-  const float* ur = explore ? u + static_cast<size_t>(row) * A : nullptr;
-
+// One warp draws one action from one row of logits l[0..A) with the
+// uniforms ur[0..A) (ignored unless exploring) and writes the action and
+// its logp. Both kernels below run this same code, so the k-step kernel
+// at k=1 picks exactly what the single-step kernel picks.
+__device__ __forceinline__ void sample_row(const float* __restrict__ l,
+                                           const float* __restrict__ ur,
+                                           int A, int explore, int lane,
+                                           int64_t* __restrict__ action,
+                                           float* __restrict__ logp) {
   float best = -INFINITY;
   int best_j = A;  // larger than any real index: loses every tie
   float m = -INFINITY;
@@ -76,9 +86,40 @@ __global__ void categorical_sample_kernel(const float* __restrict__ logits,
     s += __shfl_xor_sync(0xffffffffu, s, off);
 
   if (lane == 0) {
-    actions[row] = best_j;
-    logp[row] = (l[best_j] - m) - logf(s);
+    *action = best_j;
+    *logp = (l[best_j] - m) - logf(s);
   }
+}
+
+__global__ void categorical_sample_kernel(const float* __restrict__ logits,
+                                          const float* __restrict__ u,
+                                          int64_t* __restrict__ actions,
+                                          float* __restrict__ logp, int B,
+                                          int A, int explore) {
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
+  if (row >= B) return;  // whole warps leave together
+  sample_row(logits + static_cast<size_t>(row) * A,
+             explore ? u + static_cast<size_t>(row) * A : nullptr, A,
+             explore, lane, actions + row, logp + row);
+}
+
+// k draws per row from one distribution (the Sebulba selection window):
+// output row r = j * N + n reads logits[n] and uniforms u[j, n]; one warp
+// per output row, as above.
+__global__ void categorical_sample_k_kernel(const float* __restrict__ logits,
+                                            const float* __restrict__ u,
+                                            int64_t* __restrict__ actions,
+                                            float* __restrict__ logp, int k,
+                                            int N, int A, int explore) {
+  const int lane = threadIdx.x % kWarp;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
+  if (r >= static_cast<long long>(k) * N) return;  // whole warps leave
+  const int n = static_cast<int>(r % N);
+  sample_row(logits + static_cast<size_t>(n) * A,
+             explore ? u + static_cast<size_t>(r) * A : nullptr, A, explore,
+             lane, actions + r, logp + r);
 }
 
 }  // namespace
@@ -91,6 +132,20 @@ extern "C" int categorical_sample(const float* logits, const float* u,
   categorical_sample_kernel<<<blocks, kRowsPerBlock * kWarp, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       logits, u, actions, logp, B, A, explore);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int categorical_sample_k(const float* logits, const float* u,
+                                    int64_t* actions, float* logp, int k,
+                                    int N, int A, int explore, void* stream) {
+  const long long rows = static_cast<long long>(k) * N;
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  categorical_sample_k_kernel<<<static_cast<unsigned>(blocks),
+                                kRowsPerBlock * kWarp, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      logits, u, actions, logp, k, N, A, explore);
   return static_cast<int>(cudaGetLastError());
 }
 

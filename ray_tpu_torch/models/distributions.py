@@ -8,8 +8,11 @@ the learner loss.
 The sampling tail (`sample`, `deterministic_sample` and the logp of the
 chosen action) goes through the hand-written CUDA kernel
 `csrc/categorical.cu` on CUDA tensors and through its plain PyTorch
-version, `_sample_logp_plain`, on CPU tensors. `logp`, `entropy` and
-`kl` stay plain PyTorch: the learner differentiates them.
+version, `_sample_logp_plain`, on CPU tensors. Its k-step form
+(`sample_logp_k`: k draws from one distribution per row, the Sebulba
+selection window) is the same file's second kernel, with its plain
+version `_sample_logp_k_plain`. `logp`, `entropy` and `kl` stay plain
+PyTorch: the learner differentiates them.
 """
 
 from __future__ import annotations
@@ -27,6 +30,13 @@ CATEGORICAL_KERNEL = CudaKernel(
     "categorical", "categorical.cu", "categorical_sample",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+# K2k: the k-step form, one warp per (draw, row); same source note.
+CATEGORICAL_K_KERNEL = CudaKernel(
+    "categorical_k", "categorical.cu", "categorical_sample_k",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p])
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -92,6 +102,71 @@ def sample_logp(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
         return actions.reshape(lead), logp.reshape(lead)
 
 
+def _sample_logp_k_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
+                         k: int, explore: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the K2k kernel: k draws per row of [N, A]
+    logits, draw j with the uniforms u[j] ([k, N, A]) when exploring,
+    the argmax k times otherwise. Returns (actions int64 [k, N], logp
+    f32 [k, N])."""
+    lead = logits.expand((k,) + tuple(logits.shape))
+    return _sample_logp_plain(lead, u, explore)
+
+
+def _sample_logp_k_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
+                        k: int, explore: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2k on [N, A] f32 logits (and [k, N, A] f32 uniforms when
+    exploring). Allocates the int64 [k, N] actions and f32 [k, N] logp."""
+    if logits.dtype != torch.float32 or logits.dim() != 2:
+        raise ValueError(f"categorical_k kernel takes [N, A] float32 "
+                         f"logits, got {tuple(logits.shape)} {logits.dtype}")
+    if not logits.is_contiguous():
+        raise ValueError("categorical_k kernel takes contiguous logits")
+    if k < 1:
+        raise ValueError(f"categorical_k kernel: k={k} < 1")
+    N, A = logits.shape
+    if explore:
+        if u is None or u.shape != (k, N, A) \
+                or u.dtype != torch.float32 or u.device != logits.device:
+            raise ValueError(
+                f"exploring needs float32 uniforms of shape {(k, N, A)} "
+                "on the logits' device")
+        if not u.is_contiguous():
+            raise ValueError("categorical_k kernel takes contiguous "
+                             "uniforms")
+    actions = torch.empty(k, N, dtype=torch.int64, device=logits.device)
+    logp = torch.empty(k, N, dtype=torch.float32, device=logits.device)
+    CATEGORICAL_K_KERNEL.launch(
+        logits.data_ptr(), u.data_ptr() if explore else None,
+        actions.data_ptr(), logp.data_ptr(), k, N, A, int(bool(explore)),
+        stream_handle(logits))
+    return actions, logp
+
+
+def sample_logp_k(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
+                  explore: bool = True, k: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(actions int64 [k, N], logp f32 [k, N]): k draws from each row of
+    the [N, A] logits, draw j with the uniforms u[j] of u [k, N, A].
+    Without uniforms (`explore=False`) every draw is the argmax and `k`
+    must be given.
+
+    CUDA tensors launch the K2k kernel (or raise); CPU tensors take the
+    plain version."""
+    if k is None:
+        if u is None:
+            raise ValueError("sample_logp_k needs k or the [k, N, A] "
+                             "uniforms")
+        k = u.shape[0]
+    with torch.no_grad():
+        if logits.device.type == "cpu":
+            return _sample_logp_k_plain(logits, u, k, explore)
+        if logits.device.type != "cuda":
+            raise ValueError(f"no categorical_k kernel for {logits.device}")
+        return _sample_logp_k_cuda(logits, u, k, explore)
+
+
 class Categorical:
     """inputs: logits (..., n)."""
 
@@ -108,6 +183,19 @@ class Categorical:
                            dtype=torch.float32, device=self.inputs.device)
         return sample_logp(self.inputs.detach().float().contiguous(), u,
                            explore)
+
+    def sample_k_with_logp(self, generator: Optional[torch.Generator],
+                           k: int, explore: bool = True):
+        """k draws per row of [N, A] logits and their logp, each [k, N]
+        (K2k on the card): the Sebulba selection window. Draw j uses its
+        own uniforms from `generator`, so the k draws are independent."""
+        u = None
+        if explore:
+            u = torch.rand((k,) + tuple(self.inputs.shape),
+                           generator=generator, dtype=torch.float32,
+                           device=self.inputs.device)
+        return sample_logp_k(self.inputs.detach().float().contiguous(), u,
+                             explore, k=k)
 
     def sample(self, generator: Optional[torch.Generator] = None):
         return self.sample_with_logp(generator, explore=True)[0]

@@ -144,9 +144,10 @@ class VisionNetwork(nn.Module):
     def forward(self, obs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cdt = self.compute_dtype
-        # NHWC uint8 -> NCHW compute dtype, normalized on the device.
-        x = obs.permute(0, 3, 1, 2).to(cdt) / torch.tensor(
-            255.0, dtype=cdt, device=obs.device)
+        # NHWC uint8 -> NCHW compute dtype, normalized on the device. The
+        # divisor is a Python number: a 0-d tensor made on the card here
+        # would be a blocking host->device copy, a stream sync per forward.
+        x = obs.permute(0, 3, 1, 2).to(cdt) / 255.0
         for name, stride in zip(self.conv_names, self.strides):
             conv = getattr(self, name)
             x = F.relu(F.conv2d(x, conv.weight.to(cdt), conv.bias.to(cdt),

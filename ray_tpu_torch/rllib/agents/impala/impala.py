@@ -2,23 +2,27 @@
 
 Counterpart of `ray_tpu/rllib/agents/impala/impala.py` (parity:
 `rllib/agents/impala/impala.py:109`): V-trace policy +
-`AsyncSamplesOptimizer`, in local mode (`num_workers=0`): the local
-worker samples through the learner's policy on the device, a
-LearnerThread runs the updates. Remote workers, inline (Sebulba)
-actors and Anakin mode wait for later slices; asking for them raises.
+`AsyncSamplesOptimizer`, in local mode (`num_workers=0`: the local
+worker samples through the learner's policy on the device) or on the
+Sebulba inline-actor path (`num_inline_actors >= 1`: actor threads step
+batched host envs with device-resident observations). A LearnerThread
+runs the updates in both. Remote workers and Anakin mode wait for later
+slices; asking for them raises.
 """
 
 from __future__ import annotations
+
+import logging
 
 from ...optimizers.async_samples_optimizer import AsyncSamplesOptimizer
 from ..trainer_template import build_trainer
 from .vtrace_policy import DEFAULT_CONFIG, VTraceTorchPolicy
 
+logger = logging.getLogger(__name__)
+
 _NOT_PORTED = {
     "num_workers": "remote rollout workers",
-    "num_inline_actors": "inline (Sebulba) actors",
     "anakin": "Anakin mode",
-    "device_frame_stack": "on-device frame stacking",
     "sgd_minibatch_size": "the fused minibatch-SGD program",
 }
 
@@ -27,11 +31,71 @@ def make_async_optimizer(workers, config):
     return AsyncSamplesOptimizer(
         workers,
         train_batch_size=config["train_batch_size"],
+        rollout_fragment_length=config["rollout_fragment_length"],
         learner_queue_size=config["learner_queue_size"],
-        num_sgd_iter=config["num_sgd_iter"])
+        num_sgd_iter=config["num_sgd_iter"],
+        # Sebulba inline actors: batched device inference on the learner
+        # process (see `InlineActorThread`).
+        num_inline_actors=config.get("num_inline_actors", 0),
+        inline_env=config.get("env"),
+        inline_num_envs=config.get("_inline_num_envs", 1),
+        inline_env_config=config.get("env_config"),
+        inline_seed=config.get("seed"),
+        device_rollouts=config.get("device_rollouts", "auto"),
+        device_frame_stack=config.get("device_frame_stack", 0),
+        obs_delta=config.get("obs_delta", "auto"),
+        obs_delta_budget=config.get("obs_delta_budget", 256),
+        # Sebulba pipeline gears (see evaluation/device_sampler.py):
+        # double-buffered env groups + k-step on-device selection.
+        sebulba_env_groups=config.get("sebulba_env_groups", 2),
+        sebulba_onchip_steps=config.get("sebulba_onchip_steps", 1))
 
 
 def validate_config(config):
+    """The reference's checks and errors (`impala.py:61-97`) first, then
+    NotImplementedError for what the port does not run yet."""
+    if config.get("device_frame_stack") and \
+            not config.get("num_inline_actors"):
+        raise ValueError(
+            "device_frame_stack only applies to the inline-actor "
+            "(Sebulba) path; set num_inline_actors >= 1")
+    if config.get("num_inline_actors"):
+        if config.get("num_workers"):
+            raise ValueError(
+                "num_inline_actors and num_workers are alternative "
+                "sampling architectures; set num_workers=0 for the "
+                "inline (Sebulba) path or num_inline_actors=0 for "
+                "remote rollout workers")
+        if config.get("anakin"):
+            raise ValueError(
+                "num_inline_actors is ignored in anakin mode — the "
+                "fused program does its own device-resident rollouts")
+        onchip = config.get("sebulba_onchip_steps", 1)
+        if onchip < 1:
+            raise ValueError("sebulba_onchip_steps must be >= 1")
+        if config["rollout_fragment_length"] % onchip:
+            raise ValueError(
+                "rollout_fragment_length must be a multiple of "
+                "sebulba_onchip_steps (fragments tile whole k-step "
+                "selection windows)")
+        if config.get("sebulba_env_groups", 1) < 1:
+            raise ValueError("sebulba_env_groups must be >= 1")
+        # Inline actors own the real env batch; the local RolloutWorker
+        # keeps a single probe env (spaces only).
+        config["_inline_num_envs"] = config.get("num_envs_per_worker", 1)
+        config["num_envs_per_worker"] = 1
+        # One actor fragment IS the train batch in this mode; align the
+        # config key so downstream consumers (and users reading results)
+        # see the effective value instead of a silently-ignored one.
+        effective = config["_inline_num_envs"] \
+            * config["rollout_fragment_length"]
+        if config.get("train_batch_size") not in (None, effective):
+            logger.info(
+                "inline-actor mode trains on whole %d-step fragments "
+                "(num_envs_per_worker * rollout_fragment_length); "
+                "overriding train_batch_size=%s",
+                effective, config.get("train_batch_size"))
+        config["train_batch_size"] = effective
     for key, what in _NOT_PORTED.items():
         if config.get(key):
             raise NotImplementedError(

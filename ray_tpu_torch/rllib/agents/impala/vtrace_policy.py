@@ -45,6 +45,38 @@ DEFAULT_CONFIG = with_common_config({
     # 0 = one full-batch update per train batch (the fused minibatch-SGD
     # program is not ported yet).
     "sgd_minibatch_size": 0,
+    # Sebulba inline actors (`optimizers/async_samples_optimizer.py`
+    # InlineActorThread): actor threads on the trainer's process step
+    # batched host envs and select actions through the learner's policy
+    # on the device. 0 = local mode.
+    "num_inline_actors": 0,
+    # Device-resident inline rollouts (`evaluation/device_sampler.py`):
+    # obs ship to the card once and train in place. "auto" uses them for
+    # feedforward policies; False (the host-side VectorSampler) is not
+    # ported yet.
+    "device_rollouts": "auto",
+    # Stack depth for on-device frame stacking (0 = off). Requires an
+    # env that emits single-channel frames (see device_frame_stack.py).
+    "device_frame_stack": 0,
+    # Delta-encoded observation uploads (`env/delta_obs.py`): the device
+    # retains the frame batch; the host ships only changed pixels.
+    # "auto" = envs with native delta support; True also wraps other
+    # frame envs in the generic host-side `DeltaEncoder`; False = off.
+    "obs_delta": "auto",
+    # Max changed pixels per env-row before falling back to a full-frame
+    # row (generic DeltaEncoder only; native envs set their own budget).
+    "obs_delta_budget": 256,
+    # Double-buffered env groups per inline actor: while one group's
+    # selection and action fetch are in flight, the other groups' envs
+    # step on the host. Falls back to the largest count that tiles the
+    # env slots.
+    "sebulba_env_groups": 2,
+    # k-step on-device action selection: one action fetch per k env
+    # steps, at up to k-1 steps of behaviour-policy lag (the POLICY_LAG
+    # column; V-trace corrects it, since the stored behaviour logits are
+    # the ones that selected each action). Requires
+    # rollout_fragment_length % k == 0.
+    "sebulba_onchip_steps": 1,
 })
 
 

@@ -7,7 +7,9 @@ exposes `compute_action`/`get_policy`/`workers`.
 
 The JAX trainer built a learner mesh from `jax.devices()`
 (`Trainer._make_mesh`); this one resolves the config's ``"device"``
-instead ("cuda" by default, "cpu" on request, no fallback). Remote
+instead ("cuda" by default, "cpu" on request, no fallback). With
+`device_frame_stack` the probe env advertises the stacked observation
+space, and episodes of inline (Sebulba) actors join the result. Remote
 workers, worker-failure recovery, evaluation workers, checkpoints and
 the cluster-metrics push wait for the runtime port.
 """
@@ -77,6 +79,22 @@ class Trainer(Trainable):
             self.env_creator = lambda cfg, _n=env_name: make_env(_n, cfg)
         else:
             raise ValueError("config['env'] is required")
+        k = merged.get("device_frame_stack") or 0
+        if k:
+            # On-device frame stacking (device_frame_stack.py): the env
+            # emits single frames, the device sampler stacks them on the
+            # card. The probe env must advertise the STACKED space so the
+            # policy builds the right network.
+            from ..env.device_frame_stack import stacked_space
+            inner_creator = self.env_creator
+
+            def stacked_creator(cfg, _mk=inner_creator, _k=k):
+                env = _mk(cfg)
+                env.observation_space = stacked_space(
+                    env.observation_space, _k)
+                return env
+
+            self.env_creator = stacked_creator
         # Fail before any env or policy is built: a CUDA device that is
         # not there is an error, never a silent CPU run.
         self.device = resolve_device(merged.get("device"))
@@ -94,6 +112,9 @@ class Trainer(Trainable):
     # ------------------------------------------------------------------
     def _result_from_optimizer(self, optimizer) -> dict:
         episodes = collect_episodes(self.workers)
+        inline = getattr(optimizer, "inline_episodes", None)
+        if inline is not None:
+            episodes.extend(inline())
         self._episode_history = getattr(self, "_episode_history", [])
         result = summarize_episodes(
             episodes, smoothed=self._episode_history)

@@ -9,11 +9,13 @@ the feedforward, single-device path:
   `torch.Generator`, seeded from `config["seed"]`.
 - `learn_on_batch`: loss -> backward -> clip by global norm -> Adam,
   the optax chain of `default_optimizer` (`jax_policy.py:57-63`).
+- `select`: the Sebulba sampler's selection window, k draws from one
+  forward (kernel K2k), left on the device.
 - An explicit `torch.device` from `config["device"]` ("cuda" unless the
   caller asks for "cpu"; no fallback).
 - `_update_lock` serializes updates against rollout inference and
   weight reads/writes: the async optimizer runs `learn_on_batch` on a
-  LearnerThread while the sampler calls `compute_actions`.
+  LearnerThread while samplers call `compute_actions` or `select`.
 
 Left for later slices: the device mesh and SpecLayout, the q8
 all-reduce, `sgd_learn` (the fused minibatch loop), `compute_gradients`
@@ -107,13 +109,27 @@ class TorchPolicy(Policy):
 
     # ------------------------------------------------------------------
     def _to_device(self, array) -> torch.Tensor:
-        """Host array -> device tensor with `_device_batch`'s casts:
-        f64 -> f32 and bool -> f32 (integers and uint8 frames keep their
-        type)."""
+        """Column -> device tensor with `_device_batch`'s casts: f64 ->
+        f32 and bool -> f32 (integers and uint8 frames keep their type).
+        A tensor already on `self.device` (the Sebulba sampler's columns)
+        is cast there, never sent through the host (parity:
+        `jax_policy.py:460-474`)."""
+        if isinstance(array, torch.Tensor):
+            if array.device != self.device:
+                raise ValueError(f"column on {array.device}, policy on "
+                                 f"{self.device}")
+            if array.dtype in (torch.float64, torch.bool):
+                array = array.float()
+            return array
         array = np.asarray(array)
         if array.dtype == np.float64 or array.dtype == np.bool_:
             array = array.astype(np.float32)
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+        tensor = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            # From pinned memory the copy does not block the host (a
+            # pageable one waits for everything queued on the stream).
+            return tensor.pin_memory().to(self.device, non_blocking=True)
+        return tensor.to(self.device)
 
     # ------------------------------------------------------------------
     # rollout inference
@@ -131,6 +147,22 @@ class TorchPolicy(Policy):
             sb.VF_PREDS: value.cpu().numpy(),
         }
         return actions.cpu().numpy(), [], extra
+
+    def select(self, obs: torch.Tensor, k: int,
+               generator: Optional[torch.Generator] = None,
+               explore: bool = True):
+        """One Sebulba selection window: the forward at `obs` (a tensor on
+        `self.device`) and k action draws from its distribution (kernel
+        K2k). Returns (actions int64 [k, n], logp [k, n], dist_inputs
+        [n, A], value [n]), all on the device and not waited for. The
+        update lock is held while the work is enqueued: on one stream the
+        window then reads either the whole old or the whole new
+        parameters (parity: `device_sampler.py:357` `_dispatch_select`)."""
+        with self._update_lock, torch.no_grad():
+            dist_inputs, value = self.model(obs)
+            actions, logp = self.dist_class(
+                dist_inputs).sample_k_with_logp(generator, k, explore)
+        return actions, logp, dist_inputs, value
 
     def value_function(self, obs_batch, state=None):
         obs = self._to_device(obs_batch)

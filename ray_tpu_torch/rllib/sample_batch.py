@@ -1,11 +1,12 @@
 """SampleBatch: columnar trajectory data.
 
 The port's own copy of `ray_tpu/rllib/sample_batch.py` (numpy only),
-trimmed to what this slice's path uses. Parity:
-`rllib/policy/sample_batch.py` — a dict of equal-length numpy columns.
-Columns are contiguous numpy arrays so host→device feeding is a single
+trimmed to what the port's paths use. Parity:
+`rllib/policy/sample_batch.py` — a dict of equal-length columns. Host
+columns are contiguous numpy arrays, so host→device feeding is a single
 copy per column (the learner converts whole columns, never per-row
-objects).
+objects); the Sebulba sampler's big columns are `torch.Tensor`s already
+on the learner's device, and every method here takes both.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 # Canonical column names (same vocabulary as the reference).
 OBS = "obs"
@@ -33,6 +35,9 @@ PREV_REWARDS = "prev_rewards"
 # Per-fragment bootstrap observation, shape [num_fragments, ...] — one
 # row per rollout fragment rather than per step.
 BOOTSTRAP_OBS = "bootstrap_obs"
+# Selection lag of each transition in steps (Sebulba k-step windows: the
+# action of sub-step j was chosen from the window-head observation).
+POLICY_LAG = "policy_lag"
 
 # Columns whose leading dimension is NOT the per-step row count.
 _NON_ROW_COLUMNS = (BOOTSTRAP_OBS,)
@@ -63,7 +68,9 @@ class SampleBatch(dict):
         out = {}
         for k in keys:
             vals = [b[k] for b in batches]
-            if isinstance(vals[0], np.ndarray):
+            if isinstance(vals[0], torch.Tensor):
+                out[k] = torch.cat(vals, dim=0)
+            elif isinstance(vals[0], np.ndarray):
                 out[k] = np.concatenate(vals, axis=0)
             else:
                 out[k] = [x for v in vals for x in v]

@@ -4,7 +4,10 @@
 on the same numpy logits. The sampling tail's plain version (the CPU
 side of the K2 kernel) with fixed uniforms against a numpy Gumbel-max,
 exactly. jax.random and torch.Generator streams never agree, so the
-port's sampler itself is held to a chi-square distribution test.
+port's sampler itself is held to a chi-square distribution test. The
+same for the k-step tail (the CPU side of the K2k kernel): exact against
+numpy on fixed uniforms, argmax and logp against JAX's `Categorical`,
+and k seeded draws per row against softmax, independent of each other.
 """
 
 import jax  # noqa: F401  (the JAX package below runs on the CPU)
@@ -100,3 +103,79 @@ def test_cpu_inputs_never_touch_the_kernel():
     before = distributions.CATEGORICAL_KERNEL.launches
     Categorical(torch.zeros(4, 3)).sample(torch.Generator().manual_seed(0))
     assert distributions.CATEGORICAL_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("k,N,A", [(1, 32, 6), (5, 32, 6), (8, 65, 18)])
+def test_plain_k_tail_is_numpy_gumbel_max(k, N, A):
+    """Draw j of each row is the Gumbel-max of the row's logits with the
+    uniforms u[j]: exactly numpy's, logp within 1e-6."""
+    logits = _logits((N, A), seed=k + N)
+    u = np.random.default_rng(A).random((k, N, A), dtype=np.float32)
+    actions, logp = distributions.sample_logp_k(
+        torch.from_numpy(logits), torch.from_numpy(u), explore=True)
+    assert actions.shape == (k, N) and actions.dtype == torch.int64
+    score = logits[None] - np.log(-np.log(np.maximum(
+        u, np.finfo(np.float32).tiny)))
+    want = np.argmax(score, axis=-1)
+    np.testing.assert_array_equal(actions.numpy(), want)
+    want_logp = np.take_along_axis(
+        np.broadcast_to(_np_log_softmax(logits), (k, N, A)),
+        want[..., None], -1)[..., 0]
+    np.testing.assert_allclose(logp, want_logp, rtol=TOL, atol=TOL)
+    if k == 1:  # the single-step tail on the same uniforms
+        a1, l1 = distributions.sample_logp(
+            torch.from_numpy(logits), torch.from_numpy(u[0]), explore=True)
+        assert torch.equal(a1, actions[0]) and torch.equal(l1, logp[0])
+
+
+def test_plain_k_tail_not_exploring_matches_jax():
+    """explore=False: every draw of the window is JAX's
+    `deterministic_sample`, with JAX's logp of it (1e-6)."""
+    logits = _logits((40, 7), seed=3)
+    logits[0, :3] = 5.0  # a tie: the first maximum
+    actions, logp = distributions.sample_logp_k(
+        torch.from_numpy(logits), None, explore=False, k=3)
+    jd = JaxCategorical(logits)
+    want = np.asarray(jd.deterministic_sample())
+    for j in range(3):
+        np.testing.assert_array_equal(actions[j].numpy(), want)
+        np.testing.assert_allclose(
+            logp[j], np.asarray(jd.logp(want.astype(np.int32))), rtol=TOL,
+            atol=TOL)
+    assert int(actions[0, 0]) == 0
+
+
+def test_k_draws_match_softmax_and_are_independent():
+    """k=5 draws per row from a seeded generator (the Sebulba window):
+    the draws of every position j follow softmax (chi-square p>1e-3), and
+    a window's k draws are independent — the share of windows whose k
+    actions are all equal is sum_a p_a^k (binomial z < 4)."""
+    k, n = 5, 20000
+    logits = torch.tensor([1.0, 0.0, -1.0, 2.0, 0.5, -3.0])
+    probs = torch.softmax(logits, -1).numpy().astype(np.float64)
+    probs /= probs.sum()
+    gen = torch.Generator().manual_seed(0)
+    actions, logp = Categorical(logits.expand(n, 6)).sample_k_with_logp(
+        gen, k)
+    actions = actions.numpy()
+    for j in range(k):
+        counts = np.bincount(actions[j], minlength=6)
+        _, p_value = stats.chisquare(counts, n * probs)
+        assert p_value > 1e-3, (j, counts, n * probs)
+    np.testing.assert_allclose(logp.numpy(), np.log(probs)[actions],
+                               rtol=1e-5, atol=1e-5)
+    all_equal = (actions == actions[0]).all(axis=0).mean()
+    want = float((probs ** k).sum())
+    z = abs(all_equal - want) / np.sqrt(want * (1 - want) / n)
+    assert z < 4.0, (all_equal, want)
+    # Seeded: the same generator seed gives the same window.
+    again = Categorical(logits.expand(n, 6)).sample_k_with_logp(
+        torch.Generator().manual_seed(0), k)[0].numpy()
+    np.testing.assert_array_equal(again, actions)
+
+
+def test_cpu_inputs_never_touch_the_k_kernel():
+    before = distributions.CATEGORICAL_K_KERNEL.launches
+    Categorical(torch.zeros(4, 3)).sample_k_with_logp(
+        torch.Generator().manual_seed(0), 3)
+    assert distributions.CATEGORICAL_K_KERNEL.launches == before

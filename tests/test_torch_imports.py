@@ -18,6 +18,13 @@ import sys
 import ray_tpu_torch
 import ray_tpu_torch.rllib.agents.impala
 import ray_tpu_torch.models.convert
+import ray_tpu_torch.rllib.env.batched_env
+import ray_tpu_torch.rllib.env.delta_obs
+import ray_tpu_torch.rllib.env.device_frame_stack
+import ray_tpu_torch.rllib.evaluation.device_sampler
+import ray_tpu_torch.rllib.optimizers.async_samples_optimizer
+from ray_tpu_torch.rllib.env import make_batched_env
+make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "ray_tpu"))

@@ -16,6 +16,7 @@ import torch
 from ray_tpu_torch._private import cuda_build
 from ray_tpu_torch.models import distributions
 from ray_tpu_torch.rllib.agents.impala import vtrace
+from ray_tpu_torch.rllib.evaluation import device_sampler
 
 # The kernels run the plain versions' f32 arithmetic in another order
 # (fused multiply-adds, a warp-shuffle sum): 1e-5.
@@ -164,6 +165,213 @@ def test_policy_on_the_card_launches_both_kernels(cuda):
     assert next(card.model.parameters()).device.type == "cuda"
 
 
+def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
+    """K3 inputs: delta rows with pad entries, out-of-range indices, a
+    quarter of the rows replaced whole and some done rows; or a frame
+    upload with a done upload. S=0: no stack."""
+    rng = np.random.default_rng(seed)
+    side = int(round(hw ** 0.5))
+    done = rng.random(n) < 0.25
+    kw = {}
+    if mode == "delta":
+        idx = np.stack([rng.permutation(hw + 16)[:K] for _ in range(n)])
+        idx[:, ::5] = hw
+        idx = idx.astype(np.uint16)
+        val = rng.integers(0, 256, (n, K), dtype=np.uint8)
+        packed = np.concatenate([idx.view(np.uint8), val,
+                                 done.astype(np.uint8)[:, None]], axis=1)
+        m = max(1, n // 4)
+        b = 1 << (m - 1).bit_length()
+        rows = np.full(b, n, np.int32)
+        rows[:m] = rng.permutation(n)[:m]
+        kw.update(packed=np.ascontiguousarray(packed), rows=rows,
+                  fulls=rng.integers(0, 256, (b, hw), dtype=np.uint8))
+    else:
+        kw["done"] = done
+    if S:
+        kw["stack"] = rng.integers(0, 256, (n, side, side, S),
+                                   dtype=np.uint8)
+    frames = rng.integers(0, 256, (n, hw), dtype=np.uint8)
+    kw = {k: torch.from_numpy(v).to(device) for k, v in kw.items()}
+    return torch.from_numpy(frames).to(device), (side, side, 1), kw
+
+
+OBS_APPLY_CASES = [
+    (32, 128, 4, "delta", 7056), (32, 0, 4, "frame", 7056),
+    (32, 128, 0, "delta", 7056), (512, 1024, 4, "delta", 7056),
+    # Frames that are not a whole number of 16-byte vectors, and stacks
+    # of other depths, take the kernel's byte-wise paths.
+    (5, 7, 3, "delta", 36), (3, 4, 4, "delta", 36),
+    (4, 9, 1, "delta", 64), (6, 0, 2, "frame", 49),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,K,S,mode,hw", OBS_APPLY_CASES)
+def test_obs_apply_kernel_matches_plain(cuda, n, K, S, mode, hw):
+    """The observation and the updated frames equal the plain version's
+    bit for bit."""
+    frames, shape, kw = _obs_apply_inputs(n, K, S, mode, hw, cuda,
+                                          seed=n + K)
+    f_kernel, f_plain = frames.clone(), frames.clone()
+    before = device_sampler.OBS_APPLY_KERNEL.launches
+    got = device_sampler.apply_obs(f_kernel, shape, **kw)
+    torch.cuda.synchronize()
+    assert device_sampler.OBS_APPLY_KERNEL.launches == before + 1
+    want = device_sampler._apply_obs_plain(f_plain, shape, **kw)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(f_kernel, f_plain)
+    if mode == "frame":
+        assert torch.equal(f_kernel, frames)  # read only
+
+
+@pytest.mark.gpu
+def test_obs_apply_kernel_rejects_what_it_cannot_take(cuda):
+    frames, shape, kw = _obs_apply_inputs(4, 8, 4, "delta", 64, cuda)
+    bad = dict(kw, stack=kw["stack"].float())
+    with pytest.raises(ValueError, match="stack is torch.float32"):
+        device_sampler._apply_obs_cuda(frames, shape, **bad)
+    bad = dict(kw, rows=kw["rows"].long())
+    with pytest.raises(ValueError, match="rows is torch.int64"):
+        device_sampler._apply_obs_cuda(frames, shape, **bad)
+    bad = dict(kw, packed=kw["packed"].cpu())
+    with pytest.raises(ValueError, match="packed is on"):
+        device_sampler._apply_obs_cuda(frames, shape, **bad)
+    bad = dict(kw, packed=kw["packed"][:, :-2].contiguous())
+    with pytest.raises(ValueError, match="3K\\+1"):
+        device_sampler._apply_obs_cuda(frames, shape, **bad)
+    with pytest.raises(ValueError, match="done upload"):
+        device_sampler._apply_obs_cuda(frames, shape,
+                                       stack=kw["stack"])
+
+
+CATEGORICAL_K_CASES = [(1, 32, 6), (5, 32, 6), (8, 4096, 18), (3, 7, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,N,A", CATEGORICAL_K_CASES)
+@pytest.mark.parametrize("explore", [True, False])
+def test_categorical_k_kernel_matches_plain(cuda, k, N, A, explore):
+    gen = torch.Generator(device=cuda).manual_seed(k * N * A)
+    logits = torch.randn(N, A, generator=gen, device=cuda) * 3.0
+    u = torch.rand(k, N, A, generator=gen, device=cuda) if explore \
+        else None
+    before = distributions.CATEGORICAL_K_KERNEL.launches
+    actions, logp = distributions.sample_logp_k(logits, u, explore, k)
+    torch.cuda.synchronize()
+    assert distributions.CATEGORICAL_K_KERNEL.launches == before + 1
+    want_actions, want_logp = distributions._sample_logp_k_plain(
+        logits, u, k, explore)
+    assert actions.shape == (k, N) and actions.dtype == torch.int64
+    assert torch.equal(actions, want_actions)
+    torch.testing.assert_close(logp, want_logp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("explore", [True, False])
+def test_categorical_k_at_one_equals_categorical(cuda, explore):
+    """The sampler's k=1 windows run K2k: at k=1 it picks exactly what
+    K2 picks, with the same logp bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    logits = torch.randn(32, 6, generator=gen, device=cuda) * 3.0
+    u = torch.rand(1, 32, 6, generator=gen, device=cuda)
+    a_k, logp_k = distributions.sample_logp_k(
+        logits, u if explore else None, explore, 1)
+    a, logp = distributions.sample_logp(logits, u[0] if explore else None,
+                                        explore)
+    assert torch.equal(a_k[0], a) and torch.equal(logp_k[0], logp)
+
+
+@pytest.mark.gpu
+def test_categorical_k_kernel_rejects_what_it_cannot_take(cuda):
+    logits = torch.zeros(4, 6, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        distributions._sample_logp_k_cuda(logits.double(), None, 2, False)
+    with pytest.raises(ValueError, match="uniforms"):
+        distributions._sample_logp_k_cuda(
+            logits, torch.rand(3, 4, 6, device=cuda), 2, True)
+    with pytest.raises(ValueError, match="k=0"):
+        distributions._sample_logp_k_cuda(logits, None, 0, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups,k", [(1, 1), (2, 2)])
+def test_sebulba_sampler_on_the_card_matches_the_cpu(cuda, groups, k):
+    """The Sebulba sampler on the card (K3 per group per step, K2k per
+    window) against the same sampler on the CPU, f32 model, argmax
+    actions: integer and uint8 columns equal, floats within 1e-4."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import \
+        VTraceTorchPolicy
+    from ray_tpu_torch.rllib.env.delta_obs import BatchedSpriteAtari
+    from ray_tpu_torch.rllib.env.device_frame_stack import DeviceFrameStack
+    n, T = 4, 6
+    cfg = {"model": {"compute_dtype": "f32",
+                     "conv_filters": ((8, 8, 4), (8, 4, 2))},
+           "rollout_fragment_length": T, "seed": 0}
+
+    def envs():
+        out = [DeviceFrameStack(BatchedSpriteAtari(
+            n // groups, episode_len=5, seed=3 + g), 4)
+            for g in range(groups)]
+        return out if groups > 1 else out[0]
+
+    space = DeviceFrameStack(BatchedSpriteAtari(1), 4).observation_space
+    card = VTraceTorchPolicy(space, BatchedSpriteAtari(1).action_space,
+                             dict(cfg, device="cuda"))
+    host = VTraceTorchPolicy(space, BatchedSpriteAtari(1).action_space,
+                             dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    samplers = [device_sampler.DeviceSebulbaSampler(
+        envs(), p, T, explore=False, onchip_steps=k, seed=0)
+        for p in (card, host)]
+    k3 = device_sampler.OBS_APPLY_KERNEL.launches
+    k2k = distributions.CATEGORICAL_K_KERNEL.launches
+    for _ in range(3):
+        got, want = (s.sample() for s in samplers)
+        for col in want:
+            g, w = got[col], want[col]
+            g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+            w = w.numpy() if isinstance(w, torch.Tensor) else w
+            if w.dtype.kind == "f":
+                np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                           err_msg=col)
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=col)
+    torch.cuda.synchronize()
+    assert device_sampler.OBS_APPLY_KERNEL.launches - k3 == 3 * T * groups
+    assert distributions.CATEGORICAL_K_KERNEL.launches - k2k \
+        == 3 * (T // k) * groups
+    counts = [{key: v for key, v in s.transfer_stats().items()
+               if key not in ("t_fetch_s", "t_env_s")} for s in samplers]
+    assert counts[0] == counts[1]
+
+
+def test_new_kernels_have_sources_and_entry_points():
+    for kernel in (distributions.CATEGORICAL_K_KERNEL,
+                   device_sampler.OBS_APPLY_KERNEL):
+        source = kernel.source.read_text()
+        assert kernel.source.is_file()
+        assert f'extern "C" int {kernel.symbol}(' in source
+        assert "kernel_error_string" in source
+    # K2k builds from the same source as K2, into the same library.
+    assert distributions.CATEGORICAL_K_KERNEL.source \
+        == distributions.CATEGORICAL_KERNEL.source
+    assert distributions.CATEGORICAL_K_KERNEL.library_path() \
+        == distributions.CATEGORICAL_KERNEL.library_path()
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    frames = torch.zeros(2, 16, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no obs_apply kernel"):
+        device_sampler.apply_obs(frames, (4, 4, 1),
+                                 done=torch.zeros(2, device="meta"))
+    logits = torch.zeros(2, 3, device="meta")
+    with pytest.raises(ValueError, match="no categorical_k kernel"):
+        distributions.sample_logp_k(logits, None, False, 2)
+
+
 def test_build_targets_hopper_and_tracks_the_source(tmp_path):
     kernel = cuda_build.CudaKernel("probe", "vtrace.cu", "vtrace_forward",
                                    [])
@@ -175,6 +383,37 @@ def test_build_targets_hopper_and_tracks_the_source(tmp_path):
     copy.write_text(kernel.source.read_text() + "\n// edited\n")
     kernel.source = copy
     assert kernel.library_path() != path
+
+
+def test_build_all_runs_one_nvcc_per_source(monkeypatch):
+    started = []
+    monkeypatch.setattr(cuda_build.CudaKernel, "start_build",
+                        lambda self, verbose=False:
+                        started.append(self.source.name))
+    monkeypatch.setattr(cuda_build.CudaKernel, "finish_build",
+                        lambda self, proc: "")
+    reports = cuda_build.build_all(
+        [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
+         distributions.CATEGORICAL_K_KERNEL,
+         device_sampler.OBS_APPLY_KERNEL])
+    assert sorted(started) == ["categorical.cu", "obs_apply.cu",
+                               "vtrace.cu"]
+    assert sorted(reports) == sorted(started)
+
+
+def test_launch_count_is_exact_across_threads():
+    import threading
+    kernel = cuda_build.CudaKernel("probe", "vtrace.cu", "vtrace_forward",
+                                   [])
+    kernel._fn = lambda *args: 0  # a launch that always succeeds
+    threads = [threading.Thread(
+        target=lambda: [kernel.launch() for _ in range(2000)])
+        for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert kernel.launches == 8 * 2000
 
 
 def test_no_nvcc_is_a_clear_error(monkeypatch, tmp_path):
