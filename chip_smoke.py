@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases, any failure exits non-zero (no phase is caught, nothing
+Five phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -32,6 +32,20 @@ falls back to the CPU):
    observation kernel once per group per env step, the k-step sampling
    kernel once per group per selection window, V-trace once per update.
    The frames and stacks rebuilt on the card must equal the envs' own.
+5. Anakin trainer: `IMPALATrainer` with `anakin: True` on the
+   device-resident SyntheticAtari-v0 at bench.py's shape (4096 envs x
+   16-step fragments, 8 updates per call, 65,536-row updates), for 10
+   calls: launch counts set to 0 before each call and held to one env
+   kernel and one sampling kernel per env step and one V-trace per
+   update; one call enqueued under `set_sync_debug_mode("error")` (any
+   host sync fails it); the episode accounting at the 1000-step
+   boundary; one call profiled. Then one update of a 1,024-row slice of
+   the card's own batch on the card against the CPU, and a short
+   CartPole Anakin run (32 envs x 20 steps x 10 updates per call).
+
+Phase 2 also holds the two env kernels byte for byte against their
+plain versions (reset and step, both episode boundaries, CartPole near
+its thresholds) at the Anakin shapes and at N=37.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -76,6 +90,39 @@ SEBULBA_CONFIG = {
     "seed": 0,
     "device": "cuda",
 }
+
+# The Anakin path at bench.py's shape (`bench_anakin`, bench.py:243-300).
+ANAKIN_ENVS, ANAKIN_FRAGMENT, ANAKIN_UPDATES = 4096, 16, 8
+ANAKIN_CALLS = 10  # call 0 warms up, call 1 runs under sync-debug mode,
+#                    the last is profiled; 1280 env steps cross the
+#                    1000-step episode boundary once
+ANAKIN_CONFIG = {
+    "env": "SyntheticAtari-v0",
+    "anakin": True,
+    "num_workers": 0,
+    "num_envs_per_worker": ANAKIN_ENVS,
+    "rollout_fragment_length": ANAKIN_FRAGMENT,
+    "train_batch_size": ANAKIN_ENVS * ANAKIN_FRAGMENT,
+    "anakin_updates_per_call": ANAKIN_UPDATES,
+    "lr": 6e-4,
+    "min_iter_time_s": 0,
+    "seed": 0,
+    "device": "cuda",
+}
+# The CartPole Anakin test's config (test_sebulba_anakin.py:359).
+CARTPOLE_ANAKIN_CONFIG = {
+    "env": "CartPole-v0",
+    "anakin": True,
+    "num_workers": 0,
+    "num_envs_per_worker": 32,
+    "rollout_fragment_length": 20,
+    "anakin_updates_per_call": 10,
+    "lr": 3e-3,
+    "min_iter_time_s": 0,
+    "seed": 0,
+    "device": "cuda",
+}
+CARTPOLE_CALLS = 3
 
 TRAINER_CONFIG = {
     "env": "SyntheticAtari-v0",
@@ -407,6 +454,68 @@ def check_categorical_k(k, N, A, timed):
         + (", equal to categorical at k=1" if k == 1 else "")
         + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
            f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+    return row
+
+
+ENV_TIMED_REPS, ENV_TIMED_WARMUP = 1000, 10
+
+
+def device_env_bytes(kind, n, ends):
+    """Bytes one env step must move: per env the state, the action and the
+    running episode's reward and length read once, and the state, the
+    observation, the reward, the done flag and the running episode
+    written once; the three completed-episode sums read and written only
+    for the `ends` envs whose episode the step ends."""
+    if kind == "synthetic_atari_step":
+        per_env = (4 + 4 + 8 + 8) + (4 + 4 + 84 * 84 * 4 + 4 + 1 + 8)
+    else:
+        per_env = (16 + 4 + 8 + 8) + (16 + 4 + 16 + 4 + 1 + 8)
+    return n * per_env + ends * 2 * 12
+
+
+def check_device_env(kind, n, timed):
+    """K5a or K5b against its plain version (`device_env_check`), reset
+    and step; timed, the step repeated on its own output state, with the
+    bytes of the episodes those timed steps ended."""
+    import torch
+    from ray_tpu_torch.rllib.env import device_env as de
+    from ray_tpu_torch.rllib.env import device_env_check as dec
+    atari = kind == "synthetic_atari_step"
+    env = de.DeviceSyntheticAtari() if atari else de.DeviceCartPole()
+    res = [dec.compare_with_plain(env, n, reset, seed=n)
+           for reset in (True, False)]
+    max_ulps = max(r["max_ulps"] for r in res)
+    max_err = max(r["max_abs_err"] for r in res)
+    row = {"kind": kind, "n": n, "max_abs_err": max_err,
+           "max_ulps": max_ulps}
+    if timed:
+        state, actions, ep = dec.env_case(env, n, "cuda", seed=n)
+        obs = env.empty_obs(n, "cuda")
+        rew = torch.empty(n, device="cuda")
+        done = torch.empty(n, dtype=torch.bool, device="cuda")
+        args = (state, actions, obs, rew, done, ep, dec.SEED, dec.COUNTER,
+                False)
+
+        def kernel():
+            env._launch(*args)
+
+        ends = int(ep.done_cnt.sum())
+        row["ms"] = time_call(kernel, reps=ENV_TIMED_REPS,
+                              warmup=ENV_TIMED_WARMUP)
+        row["ends_per_step"] = (int(ep.done_cnt.sum()) - ends) / (
+            ENV_TIMED_REPS + ENV_TIMED_WARMUP)
+        row["bytes"] = device_env_bytes(kind, n, row["ends_per_step"])
+        row["plain_ms"] = time_call(lambda: dec.plain_launch(env, *args),
+                                    reps=10 if atari else 200, warmup=2)
+        row["device_ms"] = device_ms(
+            kernel, "synthetic_atari_kernel" if atari else "cartpole_kernel")
+    log(f"  {kind} n={n}: reset and step equal to plain"
+        + (f" (state within {max_ulps} ulp, max_abs_err {max_err:.3e})"
+           if not atari else " byte for byte")
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms; "
+           f"{row['ends_per_step']:.4f} episode ends per timed step, "
+           f"{row['bytes']:.1f} B per step)" if timed else ""))
     return row
 
 
@@ -767,6 +876,198 @@ def run_sebulba(k):
     return summary, launches
 
 
+# ---------------------------------------------------------------------
+# phase 5: Anakin
+# ---------------------------------------------------------------------
+def sync_checked_step(opt):
+    """The optimizer's step with its enqueue under sync-debug mode
+    "error": a host sync anywhere before the call's one read raises."""
+    import torch
+
+    def step():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = opt.enqueue()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return opt.finish(pending)
+    return step
+
+
+def run_anakin_calls(config, calls, env_kernel, sync_call=None,
+                     profile_last=False):
+    """`calls` trainer iterations (one optimizer call each) of the Anakin
+    trainer: every launch count set to 0 before each call and held after
+    it to one env kernel and one sampling kernel per env step and one
+    V-trace per update. Returns (trainer, per-call rows, launch totals,
+    profile of the last call or None)."""
+    import torch
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
+    kernels = {env_kernel.name: env_kernel,
+               "categorical": distributions.CATEGORICAL_KERNEL,
+               "vtrace": vtrace.VTRACE_KERNEL}
+    T, M = config["rollout_fragment_length"], \
+        config["anakin_updates_per_call"]
+    want = {env_kernel.name: T * M, "categorical": T * M, "vtrace": M}
+    totals = dict.fromkeys(kernels, 0)
+    t0 = time.perf_counter()
+    trainer = IMPALATrainer(config=dict(config))
+    opt = trainer.optimizer
+    log(f"  trainer built in {time.perf_counter() - t0:.2f} s: "
+        f"{trainer.get_policy().num_params()} params, "
+        f"{opt.num_envs} envs x {opt.T} steps x {opt.updates_per_call} "
+        f"updates per call, obs buffer {opt._obs.nbytes} B")
+    step = opt.step
+    rows, prof = [], None
+    for i in range(calls):
+        for k in kernels.values():
+            k.launches = 0
+        opt.step = sync_checked_step(opt) if i == sync_call else step
+        profiled = profile_last and i == calls - 1
+        t0 = time.perf_counter()
+        if profiled:
+            result, prof = profile_iteration(trainer)
+        else:
+            result = trainer.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        opt.step = step
+        got = {name: k.launches for name, k in kernels.items()}
+        if got != want:
+            raise AssertionError(f"call {i}: launches {got}, the path "
+                                 f"ran {want}")
+        for name in totals:
+            totals[name] += got[name]
+        loss = result["info"]["learner"]["total_loss"]
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite loss at call {i}")
+        row = {"s": dt, "steps": result["timesteps_this_iter"],
+               "loss": loss, "episodes_total": result["episodes_total"],
+               "episode_len_mean": result["episode_len_mean"],
+               "episode_reward_mean": result["episode_reward_mean"]}
+        rows.append(row)
+        tag = (" (sync-debug error mode)" if i == sync_call else
+               " (profiled)" if profiled else "")
+        log(f"  call {i}{tag}: {dt:.4f} s, {row['steps']} env steps, "
+            f"{row['steps'] / dt:.1f} env steps/s, total_loss "
+            f"{loss:.4f}, episodes_total {row['episodes_total']}, "
+            f"episode_len_mean {row['episode_len_mean']}, "
+            f"episode_reward_mean {row['episode_reward_mean']}")
+    return trainer, rows, totals, prof
+
+
+def run_anakin():
+    """Phase 5 on SyntheticAtari-v0 at bench.py's shape. Returns the
+    trainer (still live, for the update check), summary and launches."""
+    import torch
+    from ray_tpu_torch.rllib.env import device_env as de
+    torch.cuda.reset_peak_memory_stats()
+    trainer, rows, launches, prof = run_anakin_calls(
+        ANAKIN_CONFIG, ANAKIN_CALLS, de.SYNTHETIC_ATARI_KERNEL,
+        sync_call=1, profile_last=True)
+    peak = torch.cuda.max_memory_allocated()
+    # Episode accounting: all envs start at t=0, so every episode ends at
+    # env step 1000 (the episode length), inside call 999 // 128 = 7.
+    episode_len = trainer.optimizer.env.episode_len
+    boundary = (episode_len - 1) // (ANAKIN_FRAGMENT * ANAKIN_UPDATES)
+    for i, row in enumerate(rows):
+        want = ANAKIN_ENVS if i >= boundary else 0
+        if row["episodes_total"] != want:
+            raise AssertionError(f"call {i}: episodes_total "
+                                 f"{row['episodes_total']}, want {want}")
+    if rows[boundary]["episode_len_mean"] != episode_len:
+        raise AssertionError("episode_len_mean at the boundary is "
+                             f"{rows[boundary]['episode_len_mean']}")
+    if not math.isfinite(rows[boundary]["episode_reward_mean"]):
+        raise AssertionError("no episode reward mean at the boundary")
+    steady = rows[2:-1]  # not the warm-up, sync-debug or profiled calls
+    steady_s = sum(r["s"] for r in steady)
+    stats = trainer.optimizer.stats()
+    summary = {
+        "calls": len(rows),
+        "call_s": [round(r["s"], 4) for r in rows],
+        "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+        / steady_s,
+        "call_ms_steady_mean": 1e3 * steady_s / len(steady),
+        "anakin_call_time_ms": stats["timing"]["anakin_call_time_ms"],
+        "episodes_total": stats["episodes_total"],
+        "episode_len_mean": stats["episode_len_mean"],
+        "episode_reward_mean": stats["episode_reward_mean"],
+        "max_memory_allocated_bytes": peak,
+        "launches": launches,
+        "profiled_call": prof,
+    }
+    log(f"  anakin summary: {json.dumps(summary)}")
+    return trainer, summary, launches
+
+
+def check_anakin_update_against_cpu(trainer, rows=1024):
+    """One V-trace update on the first `rows` rows (whole fragments) of a
+    batch the card's Anakin optimizer records, from the trainer's
+    weights, with an f32 trunk and TF32 off, on the card (K1 inside the
+    loss) and on the CPU (plain): stats and post-update weights within
+    rtol/atol 1e-4."""
+    import torch
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import \
+        VTraceTorchPolicy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    policy, opt = trainer.get_policy(), trainer.optimizer
+    fragments = rows // opt.T
+    with policy._update_lock:
+        batch = opt._rollout()
+    cols = {k: (v[:fragments] if k == sb.BOOTSTRAP_OBS else v[:rows]).cpu()
+            for k, v in batch.items()}
+    weights = policy.get_weights()
+    cfg = {"model": dict(policy.config["model"], compute_dtype="f32"),
+           "rollout_fragment_length": opt.T, "seed": 0,
+           "lr": ANAKIN_CONFIG["lr"], "grad_clip": 40.0}
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = VTraceTorchPolicy(policy.observation_space, policy.action_space,
+                              dict(cfg, device=device))
+        p.set_weights(weights)
+        with p._update_lock:
+            stats = p.apply_update({k: v.to(device) for k, v in
+                                    cols.items()})
+        out[device] = ({k: float(v.detach()) for k, v in stats.items()},
+                       p.get_weights())
+    (card_stats, card_w), (cpu_stats, cpu_w) = out["cuda"], out["cpu"]
+    for k, want in cpu_stats.items():
+        if not abs(card_stats[k] - want) <= 1e-4 + 1e-4 * abs(want):
+            raise AssertionError(f"card update disagrees with CPU on {k}: "
+                                 f"{card_stats[k]} vs {want}")
+    worst = 0.0
+    for k, want in cpu_w.items():
+        excess = (abs(card_w[k] - want) - 1e-4 * abs(want)).max()
+        worst = max(worst, float(excess))
+        if excess > 1e-4:
+            raise AssertionError(f"card update's {k} disagrees with CPU")
+    moved = max(float(abs(card_w[k] - weights[k]).max()) for k in cpu_w)
+    log(f"  {rows}-row update, card vs CPU (f32, TF32 off): stats "
+        f"{json.dumps({k: [card_stats[k], v] for k, v in cpu_stats.items()})}"
+        f"; weights within 1e-4 + 1e-4*|w| (worst excess over the "
+        f"relative part {worst:.3e}; largest move {moved:.3e})")
+
+
+def run_anakin_cartpole():
+    """The CartPole Anakin config on the card, so K5b runs on a path."""
+    from ray_tpu_torch.rllib.env import device_env as de
+    trainer, rows, launches, _ = run_anakin_calls(
+        CARTPOLE_ANAKIN_CONFIG, CARTPOLE_CALLS, de.CARTPOLE_KERNEL)
+    trainer.stop()
+    steady = rows[1:]
+    summary = {"calls": len(rows),
+               "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+               / sum(r["s"] for r in steady),
+               "episode_reward_mean": rows[-1]["episode_reward_mean"],
+               "launches": launches}
+    log(f"  cartpole anakin summary: {json.dumps(summary)}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -778,6 +1079,7 @@ def main():
     from ray_tpu_torch._private import cuda_build
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import vtrace
+    from ray_tpu_torch.rllib.env import device_env
     from ray_tpu_torch.rllib.evaluation import device_sampler
 
     card = card_line()
@@ -789,7 +1091,8 @@ def main():
     log("phase 1: build")
     kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
                distributions.CATEGORICAL_K_KERNEL,
-               device_sampler.OBS_APPLY_KERNEL]
+               device_sampler.OBS_APPLY_KERNEL,
+               device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL]
     t0 = time.perf_counter()
     reports = cuda_build.build_all(kernels, verbose=True)
     log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
@@ -806,6 +1109,14 @@ def main():
     check_vtrace(500, 4096, timed=False)
     k2 = check_categorical(B, A, timed=True)
     check_categorical(4096, 18, timed=False)
+    # K1 and K2 at the shapes the Anakin paths give them: SyntheticAtari
+    # (T=16, B=4096; 6 actions) and CartPole (T=20, B=32; 2 actions).
+    n_cp = CARTPOLE_ANAKIN_CONFIG["num_envs_per_worker"]
+    t_cp = CARTPOLE_ANAKIN_CONFIG["rollout_fragment_length"]
+    check_vtrace(ANAKIN_FRAGMENT, ANAKIN_ENVS, timed=False)
+    check_vtrace(t_cp, n_cp, timed=False)
+    check_categorical(ANAKIN_ENVS, NUM_ACTIONS, timed=False)
+    check_categorical(n_cp, 2, timed=False)
     k1_bound = bound_ms(4 * (6 * T * B + B), 17 * T * B)
     k2_bound = bound_ms(4 * (2 * B * A) + 8 * B + 4 * B, 9 * B * A + 3 * B)
     # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
@@ -822,6 +1133,20 @@ def main():
     check_categorical_k(8, 4096, 18, timed=False)
     k2k_bound = bound_ms(4 * n_group * A + 4 * n_group * A + 12 * n_group,
                          9 * n_group * A + 3 * n_group)
+    # K5a at the Anakin shape (4096 envs) and at 37; K5b at the CartPole
+    # Anakin shape (32 envs), at 37 and at 4096. K5a moves bytes and does
+    # integer work (Philox) of no type in the peak table; K5b's ~40 f32
+    # operations and two sincos per env are far below its bytes.
+    k5a = check_device_env("synthetic_atari_step", ANAKIN_ENVS, timed=True)
+    check_device_env("synthetic_atari_step", 37, timed=False)
+    k5a_bound = bound_ms(k5a["bytes"], 0)
+    k5b = check_device_env("cartpole_step", n_cp, timed=True)
+    check_device_env("cartpole_step", 37, timed=False)
+    check_device_env("cartpole_step", 4096, timed=False)
+    k5b_bound = bound_ms(k5b["bytes"], 60 * n_cp)
+    log(f"  bound ms: synthetic_atari_step {k5a_bound[0]:.6f} "
+        f"({k5a_bound[1]}), cartpole_step {k5b_bound[0]:.3e} "
+        f"({k5b_bound[1]})")
 
     log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
@@ -831,6 +1156,15 @@ def main():
     seb = {k: run_sebulba(k) for k in (1, 5)}
     seb_launches = {name: sum(seb[k][1][name] for k in seb)
                     for name in ("obs_apply", "categorical_k")}
+
+    log("phase 5: IMPALATrainer at full width, Anakin (device-resident "
+        "envs)")
+    anakin_trainer, _, anakin_launches = run_anakin()
+    check_anakin_update_against_cpu(anakin_trainer)
+    anakin_trainer.stop()
+    cartpole_launches = run_anakin_cartpole()
+    for name in ("vtrace", "categorical"):
+        launches[name] += anakin_launches[name] + cartpole_launches[name]
 
     kernels_line = {"kernels": [
         {"name": "vtrace", "route": "cuda",
@@ -863,6 +1197,22 @@ def main():
          "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+        {"name": "synthetic_atari_step", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/device_env.cu",
+         "replaces": "ray_tpu/rllib/env/jax_env.py:73",
+         "launches": anakin_launches["synthetic_atari_step"],
+         "max_abs_err": k5a["max_abs_err"],
+         "ms": k5a["ms"], "plain_ms": k5a["plain_ms"],
+         "bound_ms": k5a_bound[0], "bound_by": k5a_bound[1],
+         "library_ms": None},
+        {"name": "cartpole_step", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/device_env.cu",
+         "replaces": "ray_tpu/rllib/env/jax_env.py:109",
+         "launches": cartpole_launches["cartpole_step"],
+         "max_abs_err": k5b["max_abs_err"],
+         "ms": k5b["ms"], "plain_ms": k5b["plain_ms"],
+         "bound_ms": k5b_bound[0], "bound_by": k5b_bound[1],
          "library_ms": None},
     ]}
     log(json.dumps(kernels_line))

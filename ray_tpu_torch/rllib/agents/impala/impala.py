@@ -5,9 +5,10 @@ Counterpart of `ray_tpu/rllib/agents/impala/impala.py` (parity:
 `AsyncSamplesOptimizer`, in local mode (`num_workers=0`: the local
 worker samples through the learner's policy on the device) or on the
 Sebulba inline-actor path (`num_inline_actors >= 1`: actor threads step
-batched host envs with device-resident observations). A LearnerThread
-runs the updates in both. Remote workers and Anakin mode wait for later
-slices; asking for them raises.
+batched host envs with device-resident observations); a LearnerThread
+runs the updates in both. In Anakin mode (`anakin: True`) the
+`AnakinOptimizer` steps device-resident envs, infers and updates on the
+card. Remote workers wait for a later slice; asking for them raises.
 """
 
 from __future__ import annotations
@@ -22,12 +23,22 @@ logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
     "num_workers": "remote rollout workers",
-    "anakin": "Anakin mode",
     "sgd_minibatch_size": "the fused minibatch-SGD program",
 }
 
 
 def make_async_optimizer(workers, config):
+    if config.get("anakin"):
+        from ...env.device_env import make_device_env
+        from ...optimizers.anakin_optimizer import AnakinOptimizer
+        return AnakinOptimizer(
+            workers,
+            device_env=make_device_env(config["env"],
+                                       config.get("env_config")),
+            num_envs=config["_anakin_num_envs"],
+            rollout_fragment_length=config["rollout_fragment_length"],
+            updates_per_call=config.get("anakin_updates_per_call", 10),
+            seed=config.get("seed") or 0)
     return AsyncSamplesOptimizer(
         workers,
         train_batch_size=config["train_batch_size"],
@@ -51,8 +62,21 @@ def make_async_optimizer(workers, config):
         sebulba_onchip_steps=config.get("sebulba_onchip_steps", 1))
 
 
+def _train_on_whole_fragments(config, slots_key: str, message: str):
+    """Move num_envs_per_worker to the optimizer's env slots (`slots_key`)
+    and set train_batch_size to one fragment per slot, so downstream
+    consumers (and users reading results) see the effective value instead
+    of a silently-ignored one."""
+    config[slots_key] = config.get("num_envs_per_worker", 1)
+    config["num_envs_per_worker"] = 1
+    effective = config[slots_key] * config["rollout_fragment_length"]
+    if config.get("train_batch_size") not in (None, effective):
+        logger.info(message, effective, config.get("train_batch_size"))
+    config["train_batch_size"] = effective
+
+
 def validate_config(config):
-    """The reference's checks and errors (`impala.py:61-97`) first, then
+    """The reference's checks and errors (`impala.py:61-125`) first, then
     NotImplementedError for what the port does not run yet."""
     if config.get("device_frame_stack") and \
             not config.get("num_inline_actors"):
@@ -81,21 +105,29 @@ def validate_config(config):
         if config.get("sebulba_env_groups", 1) < 1:
             raise ValueError("sebulba_env_groups must be >= 1")
         # Inline actors own the real env batch; the local RolloutWorker
-        # keeps a single probe env (spaces only).
-        config["_inline_num_envs"] = config.get("num_envs_per_worker", 1)
-        config["num_envs_per_worker"] = 1
-        # One actor fragment IS the train batch in this mode; align the
-        # config key so downstream consumers (and users reading results)
-        # see the effective value instead of a silently-ignored one.
-        effective = config["_inline_num_envs"] \
-            * config["rollout_fragment_length"]
-        if config.get("train_batch_size") not in (None, effective):
-            logger.info(
-                "inline-actor mode trains on whole %d-step fragments "
-                "(num_envs_per_worker * rollout_fragment_length); "
-                "overriding train_batch_size=%s",
-                effective, config.get("train_batch_size"))
-        config["train_batch_size"] = effective
+        # keeps a single probe env (spaces only). One actor fragment IS
+        # the train batch in this mode.
+        _train_on_whole_fragments(
+            config, "_inline_num_envs",
+            "inline-actor mode trains on whole %d-step fragments "
+            "(num_envs_per_worker * rollout_fragment_length); "
+            "overriding train_batch_size=%s")
+    if config.get("anakin"):
+        if config.get("num_workers"):
+            raise ValueError(
+                "anakin mode is fully device-resident; num_workers must "
+                "be 0 (env slots come from num_envs_per_worker)")
+        if (config.get("model") or {}).get("use_lstm"):
+            raise ValueError(
+                "anakin mode currently supports feedforward policies "
+                "only; use the inline-actor (Sebulba) path for LSTM")
+        # The device-resident env slots are the optimizer's; the local
+        # RolloutWorker keeps a single probe env (spaces only). Each
+        # update trains on one num_envs x T fragment batch.
+        _train_on_whole_fragments(
+            config, "_anakin_num_envs",
+            "anakin mode trains on whole %d-step fragment batches; "
+            "overriding train_batch_size=%s")
     for key, what in _NOT_PORTED.items():
         if config.get(key):
             raise NotImplementedError(

@@ -77,6 +77,12 @@ DEFAULT_CONFIG = with_common_config({
     # the ones that selected each action). Requires
     # rollout_fragment_length % k == 0.
     "sebulba_onchip_steps": 1,
+    # Anakin mode (`optimizers/anakin_optimizer.py`): device-resident envs
+    # (`env/device_env.py`), rollout inference and the V-trace update on
+    # the card, updates_per_call updates per optimizer step with one
+    # host read. num_envs_per_worker sets the env slots.
+    "anakin": False,
+    "anakin_updates_per_call": 10,
 })
 
 

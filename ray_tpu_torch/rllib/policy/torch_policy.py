@@ -8,7 +8,9 @@ the feedforward, single-device path:
   (`models/distributions.py`), with uniforms drawn from the policy's own
   `torch.Generator`, seeded from `config["seed"]`.
 - `learn_on_batch`: loss -> backward -> clip by global norm -> Adam,
-  the optax chain of `default_optimizer` (`jax_policy.py:57-63`).
+  the optax chain of `default_optimizer` (`jax_policy.py:57-63`), run
+  by `apply_update`, which leaves the stats on the device (the Anakin
+  optimizer enqueues many updates and reads their stats once).
 - `select`: the Sebulba sampler's selection window, k draws from one
   forward (kernel K2k), left on the device.
 - An explicit `torch.device` from `config["device"]` ("cuda" unless the
@@ -177,18 +179,28 @@ class TorchPolicy(Policy):
         return {k: self._to_device(batch[k])
                 for k in _DEVICE_COLUMNS if k in batch}
 
+    def apply_update(self, dev_batch: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """One update on a batch of device tensors: loss -> backward ->
+        clip by global norm -> Adam. Returns the loss stats and
+        `grad_gnorm` as 0-d tensors on the device, not read back, so a
+        caller can enqueue many updates with no host sync. The caller
+        holds `_update_lock`."""
+        loss, stats = self._loss_fn(self, self.model, dev_batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        stats = dict(stats)
+        stats["grad_gnorm"] = clip_by_global_norm_(
+            grads, self.config.get("grad_clip"))
+        self.optimizer.step()
+        return stats
+
     def learn_on_batch(self, batch) -> Dict[str, float]:
         dev_batch = self._device_batch(batch)
         with self._update_lock:
-            loss, stats = self._loss_fn(self, self.model, dev_batch)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            grads = [p.grad for p in self.model.parameters()
-                     if p.grad is not None]
-            stats = dict(stats)
-            stats["grad_gnorm"] = clip_by_global_norm_(
-                grads, self.config.get("grad_clip"))
-            self.optimizer.step()
+            stats = self.apply_update(dev_batch)
         self.global_timestep += batch.count if hasattr(batch, "count") \
             else len(next(iter(batch.values())))
         # One device->host copy for all the stats.

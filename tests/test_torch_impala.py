@@ -251,9 +251,12 @@ def test_validate_config():
         IMPALATrainer(config=_cartpole_config(
             rollout_fragment_length=30, train_batch_size=100))
     for over in ({"num_workers": 2}, {"sgd_minibatch_size": 40},
-                 {"anakin": True},
                  # Inline actors are ported (Sebulba device rollouts);
                  # their host-sampler variant is not yet.
                  {"num_inline_actors": 1, "device_rollouts": False}):
         with pytest.raises(NotImplementedError, match="not ported"):
             IMPALATrainer(config=_cartpole_config(**over))
+    # Anakin mode is ported: it raises the reference's error for workers.
+    with pytest.raises(ValueError, match="anakin mode is fully "
+                                         "device-resident"):
+        IMPALATrainer(config=_cartpole_config(anakin=True, num_workers=2))

@@ -16,6 +16,7 @@ import torch
 from ray_tpu_torch._private import cuda_build
 from ray_tpu_torch.models import distributions
 from ray_tpu_torch.rllib.agents.impala import vtrace
+from ray_tpu_torch.rllib.env import device_env, device_env_check
 from ray_tpu_torch.rllib.evaluation import device_sampler
 
 # The kernels run the plain versions' f32 arithmetic in another order
@@ -50,7 +51,10 @@ def _vtrace_inputs(T, B, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,B", [(50, 32), (7, 5), (200, 1024)])
+# (16, 4096) and (20, 32): the Anakin paths' shapes (SyntheticAtari and
+# CartPole).
+@pytest.mark.parametrize("T,B", [(50, 32), (7, 5), (200, 1024), (16, 4096),
+                                 (20, 32)])
 @pytest.mark.parametrize("clips", [(1.0, 1.0, 1.0), (None, None, 0.9)])
 def test_vtrace_kernel_matches_plain(cuda, T, B, clips):
     clip_rho, clip_pg_rho, lambda_ = clips
@@ -86,7 +90,9 @@ def test_vtrace_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,A", [(32, 6), (1024, 18), (5, 100), (3, 1)])
+# (4096, 6) and (32, 2): the Anakin paths' shapes.
+@pytest.mark.parametrize("B,A", [(32, 6), (1024, 18), (5, 100), (3, 1),
+                                 (4096, 6), (32, 2)])
 @pytest.mark.parametrize("explore", [True, False])
 def test_categorical_kernel_matches_plain(cuda, B, A, explore):
     gen = torch.Generator(device=cuda).manual_seed(B * A)
@@ -348,9 +354,131 @@ def test_sebulba_sampler_on_the_card_matches_the_cpu(cuda, groups, k):
     assert counts[0] == counts[1]
 
 
+DEVICE_ENV_CASES = [("atari", n) for n in (1, 37, 256, 4096)] \
+    + [("cartpole", n) for n in (1, 37, 129, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n", DEVICE_ENV_CASES)
+@pytest.mark.parametrize("reset", [False, True])
+def test_device_env_kernels_match_plain(cuda, kind, n, reset):
+    """K5a/K5b against their plain versions on the card, writing into a
+    strided slot of an env-major buffer: every output byte for byte (the
+    CartPole state within 1 ulp), the neighbouring slots untouched, one
+    launch for the kernel and none for the plain version."""
+    env = device_env.DeviceSyntheticAtari() if kind == "atari" \
+        else device_env.DeviceCartPole()
+    got = device_env_check.compare_with_plain(env, n, reset, seed=n,
+                                              device=cuda)
+    assert got["max_ulps"] <= 1
+    assert got["ends"] > 0 or reset or n < 5
+
+
+@pytest.mark.gpu
+def test_device_env_kernels_reject_what_they_cannot_take(cuda):
+    env = device_env.DeviceSyntheticAtari()
+    state, actions, ep = device_env_check.env_case(env, 4, cuda, seed=0)
+    obs, rew = env.empty_obs(4, cuda), torch.empty(4, device=cuda)
+    done = torch.empty(4, dtype=torch.bool, device=cuda)
+    step = device_env._synthetic_atari_step_cuda
+
+    def call(**over):
+        a = dict(t=state["t"], target=state["target"], actions=actions,
+                 obs=obs, reward=rew, done=done, episodes=ep)
+        a.update(over)
+        step(*a.values(), 6, 1000, 0, 1, False)
+
+    with pytest.raises(ValueError, match="int32"):
+        call(t=state["t"].long())
+    with pytest.raises(ValueError, match="not contiguous"):
+        call(target=torch.zeros(8, dtype=torch.int32, device=cuda)[::2])
+    with pytest.raises(ValueError, match="is on cpu"):
+        call(t=state["t"].cpu())
+    with pytest.raises(ValueError, match="actions is on cpu"):
+        call(actions=actions.cpu())
+    with pytest.raises(ValueError, match="uint8"):
+        call(obs=obs.float())
+    with pytest.raises(ValueError, match="16-byte"):
+        call(obs=torch.empty(4 * 28224 + 1, dtype=torch.uint8,
+                             device=cuda)[1:].view(4, 84, 84, 4))
+    with pytest.raises(ValueError, match="episodes"):
+        bad = device_env.EpisodeAccumulator(4, cuda)
+        bad.ep_len = bad.ep_len.float()
+        call(episodes=bad)
+    cp = device_env.DeviceCartPole()
+    cstate, cactions, _ = device_env_check.env_case(cp, 4, cuda, seed=0)
+    cobs = cp.empty_obs(4, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        device_env._cartpole_step_cuda(
+            cstate["s"].double(), cstate["t"], cactions, cobs, rew, done,
+            None, 200, 0, 1, False)
+    with pytest.raises(ValueError, match="not contiguous"):
+        device_env._cartpole_step_cuda(
+            torch.zeros(4, 4, device=cuda).t(), cstate["t"], cactions,
+            cobs, rew, done, None, 200, 0, 1, False)
+    with pytest.raises(ValueError, match="is on cpu"):
+        device_env._cartpole_step_cuda(
+            cstate["s"].cpu(), cstate["t"], cactions, cobs, rew, done,
+            None, 200, 0, 1, False)
+
+
+def _anakin_trainer(device, n=8, T=4, updates=1):
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer
+    return IMPALATrainer(config={
+        "env": "SyntheticAtari-v0", "anakin": True, "num_workers": 0,
+        "num_envs_per_worker": n, "rollout_fragment_length": T,
+        "anakin_updates_per_call": updates, "min_iter_time_s": 0,
+        "model": {"conv_filters": [[8, 8, 4], [8, 4, 2]]}, "seed": 0,
+        "device": str(device)})
+
+
+@pytest.mark.gpu
+def test_anakin_runs_with_one_seed_record_equal_trajectories(cuda):
+    batches = []
+    for _ in range(2):
+        t = _anakin_trainer(cuda)
+        try:
+            with t.get_policy()._update_lock:
+                batch = t.optimizer._rollout()
+            batches.append({k: v.clone() for k, v in batch.items()})
+        finally:
+            t.stop()
+    assert set(batches[0]) == set(batches[1])
+    for k in batches[0]:
+        assert torch.equal(batches[0][k], batches[1][k]), k
+
+
+@pytest.mark.gpu
+def test_anakin_call_enqueues_without_a_host_sync(cuda):
+    """One whole call (2 updates x 4 env steps) is enqueued under
+    set_sync_debug_mode("error"); only `finish` reads back. Launches: the
+    env kernel and the sampling kernel once per env step, V-trace once
+    per update."""
+    t = _anakin_trainer(cuda, n=16, T=4, updates=2)
+    try:
+        t.train()  # warm-up: cuDNN and cuBLAS set themselves up
+        kernels = (device_env.SYNTHETIC_ATARI_KERNEL,
+                   distributions.CATEGORICAL_KERNEL, vtrace.VTRACE_KERNEL)
+        before = [k.launches for k in kernels]
+        opt = t.optimizer
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = opt.enqueue()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        stats = opt.finish(pending)
+        assert [k.launches - b for k, b in zip(kernels, before)] \
+            == [8, 8, 2]
+        assert all(np.isfinite(v) for v in stats.values())
+    finally:
+        t.stop()
+
+
 def test_new_kernels_have_sources_and_entry_points():
     for kernel in (distributions.CATEGORICAL_K_KERNEL,
-                   device_sampler.OBS_APPLY_KERNEL):
+                   device_sampler.OBS_APPLY_KERNEL,
+                   device_env.SYNTHETIC_ATARI_KERNEL,
+                   device_env.CARTPOLE_KERNEL):
         source = kernel.source.read_text()
         assert kernel.source.is_file()
         assert f'extern "C" int {kernel.symbol}(' in source
@@ -360,6 +488,10 @@ def test_new_kernels_have_sources_and_entry_points():
         == distributions.CATEGORICAL_KERNEL.source
     assert distributions.CATEGORICAL_K_KERNEL.library_path() \
         == distributions.CATEGORICAL_KERNEL.library_path()
+    # K5a and K5b share device_env.cu's library.
+    assert device_env.SYNTHETIC_ATARI_KERNEL.source.name == "device_env.cu"
+    assert device_env.CARTPOLE_KERNEL.library_path() \
+        == device_env.SYNTHETIC_ATARI_KERNEL.library_path()
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -395,9 +527,10 @@ def test_build_all_runs_one_nvcc_per_source(monkeypatch):
     reports = cuda_build.build_all(
         [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
          distributions.CATEGORICAL_K_KERNEL,
-         device_sampler.OBS_APPLY_KERNEL])
-    assert sorted(started) == ["categorical.cu", "obs_apply.cu",
-                               "vtrace.cu"]
+         device_sampler.OBS_APPLY_KERNEL, device_env.SYNTHETIC_ATARI_KERNEL,
+         device_env.CARTPOLE_KERNEL])
+    assert sorted(started) == ["categorical.cu", "device_env.cu",
+                               "obs_apply.cu", "vtrace.cu"]
     assert sorted(reports) == sorted(started)
 
 

@@ -136,8 +136,10 @@ def _base(**over):
     {"num_inline_actors": 1, "sebulba_onchip_steps": 0},
     {"num_inline_actors": 1, "sebulba_onchip_steps": 2},
     {"num_inline_actors": 1, "sebulba_env_groups": 0},
+    {"anakin": True, "num_workers": 2},
+    {"anakin": True, "model": {"use_lstm": True}},
 ], ids=["stack-without-actors", "with-workers", "with-anakin", "k0",
-        "untiled-k", "groups0"])
+        "untiled-k", "groups0", "anakin-with-workers", "anakin-lstm"])
 def test_validate_config_errors_match_reference(over):
     with pytest.raises(ValueError) as want:
         jax_impala.validate_config(_base(**over))
