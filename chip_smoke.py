@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, any failure exits non-zero (no phase is caught, nothing
+Six phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -43,9 +43,26 @@ falls back to the CPU):
    the card's own batch on the card against the CPU, and a short
    CartPole Anakin run (32 envs x 20 steps x 10 updates per call).
 
+6. The data-parallel trainer: `parallel.distributed.launch` starts a
+   world of 2 ranks (NCCL with a card per rank; gloo, staged through
+   pinned host memory, when both ranks share one card), each running
+   `IMPALATrainer` in local mode at phase 3's configuration with
+   `num_gpus_for_learner: 2`: 5 iterations with `allreduce_codec: "q8"`,
+   then 3 with "fp32". The launch counts (set to 0 after setup) must be
+   one K6a and one K6b per q8 update per rank, V-trace once per update
+   and the sampling tail once per env step, both ranks'
+   weights must be equal bit for bit after every iteration, the
+   residuals finite and nonzero, and the q8 payload >= 3.5x smaller
+   than fp32. Then one q8 update of a seeded batch on the card world is
+   held against the same update on a CPU world of 2 (1e-4).
+
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
-its thresholds) at the Anakin shapes and at N=37.
+its thresholds) at the Anakin shapes and at N=37, and the q8 exchange's
+encode (K6a) and gather-sum (K6b) bit for bit against theirs: K6a at
+the Nature CNN's packed gradient, the CartPole FC net's and 64M
+elements, on live blocks and the codec's edge cases; K6b at D=2 and 8,
+with and without the division by D.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -137,6 +154,11 @@ TRAINER_CONFIG = {
     "device": "cuda",
 }
 
+# Phase 6: phase 3's configuration on a world of 2 ranks (16 envs each).
+DP_RANKS = 2
+DP_ITERS = {"q8": 5, "fp32": 3}
+DP_CONFIG = dict(TRAINER_CONFIG, num_gpus_for_learner=DP_RANKS)
+
 
 def log(msg=""):
     print(msg, flush=True)
@@ -167,12 +189,21 @@ def time_call(fn, reps, warmup=10):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_symbol, reps=200):
+def device_ms(fn, kernel_symbol, reps=200, cold=False):
     """Device-only milliseconds per launch of the named CUDA kernel over
     `reps` calls of `fn`, from torch.profiler's kernel records ("not
-    measured" if the profiler records no such kernel)."""
+    measured" if the profiler records no such kernel). `cold`: a 128 MB
+    write before each call evicts the 50 MB L2, so inputs come from
+    device memory (the scrub's own kernel is not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if cold:
+        scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        inner = fn
+
+        def fn():
+            scrub.fill_(1)
+            inner()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1068,6 +1099,259 @@ def run_anakin_cartpole():
     return launches
 
 
+# ---------------------------------------------------------------------
+# phase 2: the q8 exchange's kernels
+# ---------------------------------------------------------------------
+def check_q8_encode(nb, edge, timed):
+    """K6a against its plain version (codes, scales, residuals bit for
+    bit); timed, the encode repeated on its own residual."""
+    import torch
+    from ray_tpu_torch.parallel import collectives, q8_check
+    (g, ef), err = q8_check.check_encode(nb, seed=nb, edge=edge)
+    row = {"nb": nb, "edge": edge, "max_abs_err": err}
+    if timed:
+        wire = torch.empty(collectives.wire_size(nb), dtype=torch.uint8,
+                           device="cuda")
+        row["ms"] = time_call(
+            lambda: collectives.q8_encode_ef(g, ef, wire), reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: collectives._q8_encode_ef_plain(g, ef, wire), reps=200)
+        row["device_ms"], row["device_ms_cold_l2"] = (device_ms(
+            lambda: collectives.q8_encode_ef(g, ef, wire),
+            "q8_encode_kernel", cold=cold) for cold in (False, True))
+    log(f"  q8_encode_ef nb={nb}{' edge cases' if edge else ''}: codes, "
+        f"scales and residuals equal bit for bit"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms; "
+           f"{row['device_ms_cold_l2']} ms with L2 evicted)"
+           if timed else ""))
+    return row
+
+
+def check_q8_gather_sum(world, nb, mean, timed):
+    """K6b against its plain version (the sums bit for bit)."""
+    from ray_tpu_torch.parallel import collectives, q8_check
+    gathered, err = q8_check.check_gather_sum(world, nb, mean,
+                                              seed=world * nb)
+    row = {"D": world, "nb": nb, "mean": mean, "max_abs_err": err}
+    if timed:
+        row["ms"] = time_call(
+            lambda: collectives.q8_gather_sum(gathered, nb, mean),
+            reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: collectives._q8_gather_sum_plain(gathered, nb, mean),
+            reps=200)
+        row["device_ms"], row["device_ms_cold_l2"] = (device_ms(
+            lambda: collectives.q8_gather_sum(gathered, nb, mean),
+            "q8_gather_sum_kernel", cold=cold) for cold in (False, True))
+    log(f"  q8_gather_sum D={world} nb={nb} mean={mean}: equal bit for bit"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms; "
+           f"{row['device_ms_cold_l2']} ms with L2 evicted)"
+           if timed else ""))
+    return row
+
+
+# ---------------------------------------------------------------------
+# phase 6: the data-parallel trainer (each rank a spawned process)
+# ---------------------------------------------------------------------
+def weights_digest(policy):
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for k, v in sorted(policy.get_weights().items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def dp_fixed_update(group, weights, device):
+    """One q8 V-trace update of this rank's share of a seeded batch (one
+    50-step fragment per rank) from `weights`, f32 trunk, TF32 off: the
+    stats."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import \
+        VTraceTorchPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    n = group.world_size * FRAGMENT
+    cols = {
+        sb.OBS: rng.integers(0, 256, (n, 84, 84, 4), dtype=np.uint8),
+        sb.NEW_OBS: rng.integers(0, 256, (n, 84, 84, 4), dtype=np.uint8),
+        sb.ACTIONS: rng.integers(0, NUM_ACTIONS, n),
+        sb.REWARDS: rng.random(n).astype(np.float32),
+        sb.DONES: rng.random(n) < 0.01,
+        sb.ACTION_DIST_INPUTS: rng.standard_normal(
+            (n, NUM_ACTIONS)).astype(np.float32)}
+    rows = slice(group.rank * FRAGMENT, (group.rank + 1) * FRAGMENT)
+    cfg = {"model": {"compute_dtype": "f32"},
+           "rollout_fragment_length": FRAGMENT, "seed": 0, "lr": 6e-4,
+           "grad_clip": 40.0, "device": device, "_learner_group": group,
+           "allreduce_codec": "q8"}
+    policy = VTraceTorchPolicy(Box(0, 255, (84, 84, 4), np.uint8),
+                               Discrete(NUM_ACTIONS), cfg)
+    policy.set_weights(weights)
+    return policy.learn_on_batch(
+        sb.SampleBatch({k: v[rows] for k, v in cols.items()}))
+
+
+def dp_rank(rank, backend):
+    """Phase 6 on one rank: the trainer per codec, its checks and numbers,
+    then the seeded q8 update from the trained weights."""
+    import torch
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.models.convert import flax_pack_plan
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
+    kernels = {"q8_encode_ef": collectives.Q8_ENCODE_KERNEL,
+               "q8_gather_sum": collectives.Q8_GATHER_SUM_KERNEL,
+               "vtrace": vtrace.VTRACE_KERNEL,
+               "categorical": distributions.CATEGORICAL_KERNEL}
+    local_envs = DP_CONFIG["num_envs_per_worker"] // DP_RANKS
+    out = {"rank": rank}
+    for codec, iters in DP_ITERS.items():
+        trainer = IMPALATrainer(config=dict(
+            DP_CONFIG, allreduce_codec=codec, collective_backend=backend))
+        policy, group = trainer.get_policy(), trainer.group
+        learner = trainer.optimizer.learner
+        torch.cuda.reset_peak_memory_stats(group.device)
+        # Setup broadcast the weights and probed the exchange: count the
+        # main path from here.
+        for kernel in kernels.values():
+            kernel.launches = 0
+        staging0, rows = group.staging_s, []
+        try:
+            for i in range(iters):
+                g0 = (learner.grad_timer.total, learner.grad_timer.count)
+                t0 = time.perf_counter()
+                result = trainer.train()
+                torch.cuda.synchronize(group.device)
+                dt = time.perf_counter() - t0
+                digests = group.all_gather_object(weights_digest(policy))
+                if len(set(digests)) != 1:
+                    raise AssertionError(
+                        f"{codec} iter {i}: the ranks' weights differ")
+                loss = result["info"]["learner"]["total_loss"]
+                if not math.isfinite(loss):
+                    raise AssertionError(f"{codec} iter {i}: loss {loss}")
+                updates = learner.grad_timer.count - g0[1]
+                rows.append({
+                    "s": dt, "steps": result["timesteps_this_iter"],
+                    "updates": updates, "loss": loss,
+                    "grad_ms": 1e3 * (learner.grad_timer.total - g0[0])
+                    / max(1, updates)})
+        finally:
+            trainer.stop()
+        updates = learner.grad_timer.count
+        launches = {name: k.launches for name, k in kernels.items()}
+        q8_updates = updates if codec == "q8" else 0
+        want = {"q8_encode_ef": q8_updates, "q8_gather_sum": q8_updates,
+                "vtrace": updates, "categorical":
+                trainer.optimizer.num_steps_sampled // local_envs}
+        if updates <= 0 or launches != want:
+            raise AssertionError(
+                f"{codec}: kernel launches {launches} on this rank, the "
+                f"path ran {want}")
+        steady = rows[1:]  # the first includes cuDNN's warm-up
+        steady_s = sum(r["s"] for r in steady)
+        arm = {
+            "iter_s": [round(r["s"], 4) for r in rows],
+            "losses": [r["loss"] for r in rows],
+            "world_env_steps_per_s_steady":
+                sum(r["steps"] for r in steady) / steady_s,
+            "learner_grad_ms_steady_mean": sum(
+                r["grad_ms"] * r["updates"] for r in steady)
+            / max(1, sum(r["updates"] for r in steady)),
+            "updates": updates, "launches": launches,
+            "staging_ms_per_update":
+                1e3 * (group.staging_s - staging0) / updates,
+            "payload_bytes": policy.allreduce_payload,
+            "wire_bytes": policy.allreduce_wire,
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated(group.device),
+        }
+        if codec == "q8":
+            ef = policy.ef_state
+            if not (bool(torch.isfinite(ef).all())
+                    and bool((ef != 0).any())):
+                raise AssertionError("q8 residuals not finite and nonzero")
+            arm["residual_abs_max"] = float(ef.abs().max())
+            sizes = flax_pack_plan(policy.model,
+                                   collectives.Q8_BLOCK).leaf_sizes
+            arm["exchange_probe_ms"] = {
+                c: 1e3 * collectives.allreduce_probe_s(group, sizes, c,
+                                                       iters=11)
+                for c in collectives.CODECS}
+            weights = policy.get_weights()
+            out["fixed_update"] = dp_fixed_update(group, weights,
+                                                  str(group.device))
+            if rank == 0:
+                out["weights"] = weights
+        out[codec] = arm
+    out["backend"], out["device"] = group.backend, str(group.device)
+    return out
+
+
+def dp_cpu_rank(rank, weights):
+    """The seeded q8 update on a CPU world of the same size."""
+    import torch
+    from ray_tpu_torch.parallel.mesh import LearnerGroup
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // DP_RANKS))
+    group = LearnerGroup.from_world(DP_RANKS, "gloo", "cpu")
+    return dp_fixed_update(group, weights, "cpu")
+
+
+def run_dp():
+    """Phase 6: returns the q8 kernels' launches summed over the ranks."""
+    import torch
+    from ray_tpu_torch.parallel.distributed import launch
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DP_RANKS else "gloo"
+    shared = backend == "gloo"
+    log(f"  world of {DP_RANKS} ranks over {backend} on "
+        f"{min(cards, DP_RANKS)} card(s)"
+        + (": the ranks share one card, so the numbers below describe one "
+           "shared card, not scaling" if shared else ""))
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    t0 = time.perf_counter()
+    results = launch(dp_rank, DP_RANKS, backend, backend, timeout=900)
+    log(f"  world ran in {time.perf_counter() - t0:.1f} s")
+    for r in results:
+        for codec in DP_ITERS:
+            arm = r[codec]
+            log(f"  rank {r['rank']} ({r['device']}, {r['backend']}) "
+                f"{codec}: {json.dumps(arm)}"
+                + (" [ranks share one card]" if shared else ""))
+    q8, fp = results[0]["q8"], results[0]["fp32"]
+    ratio = fp["payload_bytes"] / q8["payload_bytes"]
+    if ratio < 3.5:
+        raise AssertionError(f"q8 payload only {ratio:.3f}x below fp32")
+    log(f"  payload per update: q8 {q8['payload_bytes']} B (wire "
+        f"{q8['wire_bytes']} B with padding), fp32 {fp['payload_bytes']} B:"
+        f" {ratio:.4f}x")
+    cpu = launch(dp_cpu_rank, DP_RANKS, "gloo", results[0]["weights"],
+                 timeout=600)
+    for r, want_stats in zip(results, cpu):
+        got_stats = r["fixed_update"]
+        for k, want in want_stats.items():
+            if not abs(got_stats[k] - want) <= 1e-4 + 1e-4 * abs(want):
+                raise AssertionError(
+                    f"rank {r['rank']}: card world's q8 update disagrees "
+                    f"with the CPU world's on {k}: {got_stats[k]} vs "
+                    f"{want}")
+    pairs = {k: [results[0]["fixed_update"][k], v]
+             for k, v in cpu[0].items()}
+    log(f"  q8 update, card world vs CPU world of {DP_RANKS} (f32, TF32 "
+        f"off): {json.dumps(pairs)}")
+    return {name: sum(r[codec]["launches"][name] for r in results
+                      for codec in DP_ITERS)
+            for name in results[0]["q8"]["launches"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1080,6 +1364,7 @@ def main():
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import vtrace
     from ray_tpu_torch.rllib.env import device_env
+    from ray_tpu_torch.parallel import collectives, q8_check
     from ray_tpu_torch.rllib.evaluation import device_sampler
 
     card = card_line()
@@ -1092,7 +1377,8 @@ def main():
     kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
                distributions.CATEGORICAL_K_KERNEL,
                device_sampler.OBS_APPLY_KERNEL,
-               device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL]
+               device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
+               collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL]
     t0 = time.perf_counter()
     reports = cuda_build.build_all(kernels, verbose=True)
     log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
@@ -1147,6 +1433,34 @@ def main():
     log(f"  bound ms: synthetic_atari_step {k5a_bound[0]:.6f} "
         f"({k5a_bound[1]}), cartpole_step {k5b_bound[0]:.3e} "
         f"({k5b_bound[1]})")
+    # K6a at the Nature CNN's packed gradient (1,654 blocks), live and
+    # with the edge cases, at the CartPole FC net's and at 64M elements;
+    # K6b at D=2 (timed) and 8, with and without the division by D.
+    import numpy as np
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.models.convert import flax_pack_plan
+    from ray_tpu_torch.rllib.env.spaces import Box
+    nb_nature = flax_pack_plan(catalog.get_model(
+        Box(0, 255, (84, 84, 4), np.uint8), NUM_ACTIONS, {}),
+        collectives.Q8_BLOCK).nb
+    nb_cartpole = flax_pack_plan(catalog.get_model(
+        Box(-1.0, 1.0, (4,)), 2, {}), collectives.Q8_BLOCK).nb
+    k6a = check_q8_encode(nb_nature, edge=False, timed=True)
+    check_q8_encode(nb_nature, edge=True, timed=False)
+    check_q8_encode(nb_cartpole, edge=True, timed=False)
+    check_q8_encode(65536, edge=False, timed=False)
+    k6b = check_q8_gather_sum(DP_RANKS, nb_nature, False, timed=True)
+    check_q8_gather_sum(DP_RANKS, nb_nature, True, timed=False)
+    check_q8_gather_sum(8, nb_nature, False, timed=False)
+    check_q8_gather_sum(8, nb_nature, True, timed=False)
+    k6a_bound = bound_ms(q8_check.encode_bytes(nb_nature),
+                         q8_check.encode_ops(nb_nature))
+    k6b_bound = bound_ms(q8_check.gather_sum_bytes(DP_RANKS, nb_nature),
+                         q8_check.gather_sum_ops(DP_RANKS, nb_nature,
+                                                 False))
+    log(f"  bound ms: q8_encode_ef {k6a_bound[0]:.6f} ({k6a_bound[1]}), "
+        f"q8_gather_sum D={DP_RANKS} {k6b_bound[0]:.6f} ({k6b_bound[1]}), "
+        f"nb {nb_nature} (Nature CNN), {nb_cartpole} (CartPole FC)")
 
     log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
@@ -1165,6 +1479,12 @@ def main():
     cartpole_launches = run_anakin_cartpole()
     for name in ("vtrace", "categorical"):
         launches[name] += anakin_launches[name] + cartpole_launches[name]
+
+    log("phase 6: IMPALATrainer at full width, data-parallel learner "
+        "(q8 and fp32 exchange)")
+    dp_launches = run_dp()
+    for name in ("vtrace", "categorical"):
+        launches[name] += dp_launches[name]
 
     kernels_line = {"kernels": [
         {"name": "vtrace", "route": "cuda",
@@ -1213,6 +1533,22 @@ def main():
          "max_abs_err": k5b["max_abs_err"],
          "ms": k5b["ms"], "plain_ms": k5b["plain_ms"],
          "bound_ms": k5b_bound[0], "bound_by": k5b_bound[1],
+         "library_ms": None},
+        {"name": "q8_encode_ef", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/q8.cu",
+         "replaces": "ray_tpu/parallel/collectives.py:98",
+         "launches": dp_launches["q8_encode_ef"],
+         "max_abs_err": k6a["max_abs_err"],
+         "ms": k6a["ms"], "plain_ms": k6a["plain_ms"],
+         "bound_ms": k6a_bound[0], "bound_by": k6a_bound[1],
+         "library_ms": None},
+        {"name": "q8_gather_sum", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/q8.cu",
+         "replaces": "ray_tpu/parallel/collectives.py:117",
+         "launches": dp_launches["q8_gather_sum"],
+         "max_abs_err": k6b["max_abs_err"],
+         "ms": k6b["ms"], "plain_ms": k6b["plain_ms"],
+         "bound_ms": k6b_bound[0], "bound_by": k6b_bound[1],
          "library_ms": None},
     ]}
     log(json.dumps(kernels_line))

@@ -13,12 +13,20 @@ The one trap: the flax Vision trunk flattens its NHWC conv output in
 flattens in (C, H, W) order. The port keeps its own NCHW flatten and the
 conversion permutes the `fc` kernel's input rows from (H, W, C) to
 (C, H, W) instead (`tests/test_torch_models.py` proves it).
+
+The way back, for gradients: `flax_leaves` puts each port tensor's
+elements in its flax leaf's shape and element order, in flax's
+tree-flatten order of the leaves (layers by sorted name, then `bias`
+before `kernel`), and `flax_pack_plan` turns that into the packing of
+the data-parallel gradient exchange (`parallel/collectives.py`): every
+leaf in a block-aligned slot of one buffer, so that the q8 codes,
+scales and residuals are the JAX package's, leaf by leaf.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +82,98 @@ def flax_to_state_dict(params: Mapping,
         out[f"{name}.bias"] = torch.from_numpy(
             np.array(leaf["bias"], dtype=np.float32))
     return out
+
+
+# ---------------------------------------------------------------------
+# port -> flax element order (gradients, the exchange's packing)
+# ---------------------------------------------------------------------
+def _fc_hwc(state_dict: Mapping[str, torch.Tensor],
+            conv_out_hw: Optional[Tuple[int, int]]):
+    """(H, W, C) of the conv output the `fc` layer reads, or None for a
+    network without convs."""
+    convs = [k for k in state_dict
+             if k.startswith("conv_") and k.endswith(".weight")]
+    if not convs:
+        return None
+    last = max(convs, key=lambda k: int(k.split(".")[0].split("_")[1]))
+    channels = state_dict[last].shape[0]
+    fc_in = state_dict["fc.weight"].shape[1]
+    if conv_out_hw is None:
+        side = math.isqrt(fc_in // channels)
+        conv_out_hw = (side, side)
+    height, width = conv_out_hw
+    if height * width * channels != fc_in:
+        raise ValueError(f"conv_out_hw {conv_out_hw} x {channels} channels "
+                         f"!= fc input {fc_in}")
+    return height, width, channels
+
+
+def flax_leaves(state_dict: Mapping[str, torch.Tensor],
+                conv_out_hw: Optional[Tuple[int, int]] = None
+                ) -> List[Tuple[str, str, torch.Tensor]]:
+    """Port tensors (parameters, gradients, or index tensors of their
+    shapes) -> [(layer, "bias" | "kernel", tensor in the flax leaf's
+    shape and element order)], in flax's tree-flatten order. The inverse
+    of `flax_to_state_dict`'s layout map."""
+    fc_hwc = _fc_hwc(state_dict, conv_out_hw)
+    out = []
+    for layer in sorted({k.split(".")[0] for k in state_dict}):
+        weight = state_dict[f"{layer}.weight"]
+        if weight.dim() == 4:  # OIHW -> HWIO
+            kernel = weight.permute(2, 3, 1, 0)
+        elif weight.dim() == 2 and layer == "fc" and fc_hwc is not None:
+            # [out, (C, H, W)] -> [(H, W, C), out]
+            h, w, c = fc_hwc
+            kernel = weight.reshape(weight.shape[0], c, h, w).permute(
+                2, 3, 1, 0).reshape(h * w * c, -1)
+        elif weight.dim() == 2:
+            kernel = weight.t()
+        else:
+            raise ValueError(f"{layer}: unexpected weight rank "
+                             f"{weight.dim()}")
+        out.append((layer, "bias", state_dict[f"{layer}.bias"]))
+        out.append((layer, "kernel", kernel))
+    return out
+
+
+class PackPlan(NamedTuple):
+    """Where each gradient element goes in the exchange's packed buffer.
+
+    `pack_index` [nb * block]: for each packed position, the index into
+    the concatenation of the flattened gradients (in `parameters()`
+    order) followed by one zero, which the padding positions read.
+    `unpack_index` [n]: for each element of that concatenation, its
+    packed position. `leaf_sizes`: element counts in flax leaf order.
+    """
+    pack_index: torch.Tensor
+    unpack_index: torch.Tensor
+    leaf_sizes: List[int]
+    nb: int
+
+
+def flax_pack_plan(model: torch.nn.Module, block: int) -> PackPlan:
+    """The packing of `model`'s gradients: each flax leaf, in flax order
+    and its own element order, in a slot of whole `block`-element
+    blocks, zero-padded to its end."""
+    named = dict(model.named_parameters())
+    index, offset = {}, 0
+    for name, p in named.items():
+        index[name] = torch.arange(offset, offset + p.numel()).reshape(
+            p.shape)
+        offset += p.numel()
+    pad = offset  # the zero after the concatenated gradients
+    slots, sizes = [], []
+    for _, _, idx in flax_leaves(index, getattr(model, "conv_out_hw",
+                                                None)):
+        flat = idx.reshape(-1)
+        n = flat.numel()
+        slot = torch.full((-(-n // block) * block,), pad, dtype=torch.long)
+        slot[:n] = flat
+        slots.append(slot)
+        sizes.append(n)
+    pack_index = torch.cat(slots)
+    unpack_index = torch.empty(offset, dtype=torch.long)
+    real = pack_index < pad
+    unpack_index[pack_index[real]] = torch.nonzero(real)[:, 0]
+    return PackPlan(pack_index, unpack_index, sizes,
+                    pack_index.numel() // block)

@@ -9,6 +9,10 @@ batched host envs with device-resident observations); a LearnerThread
 runs the updates in both. In Anakin mode (`anakin: True`) the
 `AnakinOptimizer` steps device-resident envs, infers and updates on the
 card. Remote workers wait for a later slice; asking for them raises.
+With `num_gpus_for_learner` = D >= 2 each rank of a `torch.distributed`
+world runs local mode on 1/D of the envs and of each train batch and
+exchanges gradients (fp32 or q8); the data-parallel Anakin and Sebulba
+paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ def make_async_optimizer(workers, config):
             seed=config.get("seed") or 0)
     return AsyncSamplesOptimizer(
         workers,
-        train_batch_size=config["train_batch_size"],
+        # A data-parallel rank learns on its share of the global batch.
+        train_batch_size=config["train_batch_size"] // _world(config),
         rollout_fragment_length=config["rollout_fragment_length"],
         learner_queue_size=config["learner_queue_size"],
         num_sgd_iter=config["num_sgd_iter"],
@@ -75,9 +80,34 @@ def _train_on_whole_fragments(config, slots_key: str, message: str):
     config["train_batch_size"] = effective
 
 
+def _world(config) -> int:
+    return max(1, config.get("num_gpus_for_learner") or 0)
+
+
+def _validate_world(config):
+    """A data-parallel learner of D >= 2 ranks: local mode only, with
+    whole fragments on every rank (the envs split in `WorkerSet`)."""
+    world = _world(config)
+    if world < 2:
+        return
+    for key, what in (("anakin", "the Anakin path's exchange over NCCL"),
+                      ("num_inline_actors", "Sebulba inline actors")):
+        if config.get(key):
+            raise NotImplementedError(
+                f"num_gpus_for_learner={world} with {key}: the "
+                f"data-parallel learner for {what} is not ported yet "
+                "(ROADMAP Queue A item 8); local mode is")
+    T = config["rollout_fragment_length"]
+    if config["train_batch_size"] % (world * T):
+        raise ValueError(
+            f"train_batch_size={config['train_batch_size']} must split "
+            f"into whole {T}-step fragments on each of the {world} ranks")
+
+
 def validate_config(config):
     """The reference's checks and errors (`impala.py:61-125`) first, then
     NotImplementedError for what the port does not run yet."""
+    _validate_world(config)
     if config.get("device_frame_stack") and \
             not config.get("num_inline_actors"):
         raise ValueError(

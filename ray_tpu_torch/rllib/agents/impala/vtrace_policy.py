@@ -163,6 +163,9 @@ def vtrace_loss(policy, model, batch):
     return total, stats
 
 
+# The loss sums over rows (`pi_loss`, `vf_loss` and `entropy` above), so
+# the data-parallel exchange is a psum: the gradient of the global-batch
+# loss, as the implicit fp32 psum gives it on one device or a mesh.
 VTraceTorchPolicy = build_torch_policy(
-    "VTraceTorchPolicy", vtrace_loss,
+    "VTraceTorchPolicy", vtrace_loss, loss_reduction="sum",
     get_default_config=lambda: DEFAULT_CONFIG)

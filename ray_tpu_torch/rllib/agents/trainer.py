@@ -7,7 +7,12 @@ exposes `compute_action`/`get_policy`/`workers`.
 
 The JAX trainer built a learner mesh from `jax.devices()`
 (`Trainer._make_mesh`); this one resolves the config's ``"device"``
-instead ("cuda" by default, "cpu" on request, no fallback). With
+instead ("cuda" by default, "cpu" on request, no fallback), and with
+`num_gpus_for_learner` = D >= 2 it is one rank of a data-parallel
+learner: every rank of a `torch.distributed` world of D ranks
+(`parallel/distributed.py`) builds the same trainer with the same
+global config, samples its share of the envs, learns on its share of
+each train batch and exchanges gradients (`_make_learner_group`). With
 `device_frame_stack` the probe env advertises the stacked observation
 space, and episodes of inline (Sebulba) actors join the result. Remote
 workers, worker-failure recovery, evaluation workers, checkpoints and
@@ -19,9 +24,11 @@ from __future__ import annotations
 from typing import Optional
 
 from ...device import resolve_device
+from ...parallel.mesh import LearnerGroup
 from ...tune.trainable import Trainable
 from ..env.registry import make_env
-from ..evaluation.metrics import collect_episodes, summarize_episodes
+from ..evaluation.metrics import (collect_episodes, summarize_episodes,
+                                  world_totals)
 from ..evaluation.worker_set import WorkerSet
 from ..utils.config import deep_merge
 
@@ -44,6 +51,19 @@ COMMON_CONFIG = {
     # === Device ===
     # "cuda" (default) or "cpu"; "cuda" without a card raises.
     "device": "cuda",
+    # === Data-parallel learner ===
+    # 0 or 1: one learner device. D >= 2: this process is one rank of an
+    # initialized torch.distributed world of exactly D ranks (start one
+    # with `parallel.distributed.launch`), each with a full replica of
+    # the parameters and 1/D of the envs and of every train batch.
+    "num_gpus_for_learner": 0,
+    # The gradient exchange: "fp32" (all-reduce), "q8" (block-quantized
+    # all-reduce with error feedback), or "auto" (RAY_TPU_ALLREDUCE_CODEC,
+    # default fp32).
+    "allreduce_codec": "auto",
+    # The world's backend: "nccl" (one rank per card) or "gloo" (CPU
+    # worlds, and ranks sharing one card). Must be the world's own.
+    "collective_backend": "nccl",
     # === Environment ===
     "env": None,
     "env_config": {},
@@ -97,8 +117,29 @@ class Trainer(Trainable):
             self.env_creator = stacked_creator
         # Fail before any env or policy is built: a CUDA device that is
         # not there is an error, never a silent CPU run.
-        self.device = resolve_device(merged.get("device"))
+        self.group = self._make_learner_group(merged)
+        merged["_learner_group"] = self.group
+        self.device = self.group.device if self.group is not None \
+            else resolve_device(merged.get("device"))
         self._init(merged)
+
+    @staticmethod
+    def _make_learner_group(config) -> Optional[LearnerGroup]:
+        """The counterpart of `_make_mesh`: None for one learner device,
+        else this rank's `LearnerGroup` of the initialized world, which
+        must have exactly `num_gpus_for_learner` ranks and the
+        configured backend (a short world is an error, as a short mesh
+        is in JAX)."""
+        if (config.get("num_tpus_for_learner") or 0) > 1:
+            raise ValueError(
+                "num_tpus_for_learner is the JAX package's mesh size; the "
+                "port's data-parallel learner is num_gpus_for_learner (one "
+                "rank of a torch.distributed world per device)")
+        world = config.get("num_gpus_for_learner") or 0
+        if world <= 1:
+            return None
+        return LearnerGroup.from_world(
+            world, config.get("collective_backend"), config.get("device"))
 
     def _init(self, config):
         """Subclasses/templates build workers + optimizer here."""
@@ -115,15 +156,22 @@ class Trainer(Trainable):
         inline = getattr(optimizer, "inline_episodes", None)
         if inline is not None:
             episodes.extend(inline())
+        sampled, trained = (optimizer.num_steps_sampled,
+                            optimizer.num_steps_trained)
+        if self.group is not None:
+            # The whole world's steps and episodes, one collective.
+            episodes, sampled, trained = world_totals(
+                self.group, episodes, sampled, trained)
         self._episode_history = getattr(self, "_episode_history", [])
         result = summarize_episodes(
             episodes, smoothed=self._episode_history)
         self._episode_history = (self._episode_history + episodes)[-100:]
         result.update(optimizer.stats())
+        result["num_steps_sampled"] = sampled
+        result["num_steps_trained"] = trained
         result["timesteps_this_iter"] = (
-            optimizer.num_steps_sampled
-            - getattr(self, "_last_steps_sampled", 0))
-        self._last_steps_sampled = optimizer.num_steps_sampled
+            sampled - getattr(self, "_last_steps_sampled", 0))
+        self._last_steps_sampled = sampled
         result["info"] = {"learner": getattr(optimizer, "learner_stats", {})}
         return result
 

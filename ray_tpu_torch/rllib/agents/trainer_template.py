@@ -34,16 +34,23 @@ def build_trainer(name: str,
         def _train(self):
             # Iteration pacing (parity: trainer_template.py:117-135): keep
             # stepping the optimizer until both min_iter_time_s and
-            # timesteps_per_iteration are satisfied.
+            # timesteps_per_iteration are satisfied. Every rank of a
+            # data-parallel learner samples the same number of steps, and
+            # rank 0's clock decides for all, so every rank runs the same
+            # updates (each one a collective).
             start = time.monotonic()
             steps0 = self.optimizer.num_steps_sampled
             min_time = self.config.get("min_iter_time_s") or 0
             min_steps = self.config.get("timesteps_per_iteration") or 0
+            world = 1 if self.group is None else self.group.world_size
             while True:
                 self.optimizer.step()
-                if (time.monotonic() - start >= min_time
-                        and self.optimizer.num_steps_sampled - steps0
-                        >= min_steps):
+                done = (time.monotonic() - start >= min_time
+                        and (self.optimizer.num_steps_sampled - steps0)
+                        * world >= min_steps)
+                if self.group is not None:
+                    done = self.group.broadcast_object(done)
+                if done:
                     break
             return self._result_from_optimizer(self.optimizer)
 

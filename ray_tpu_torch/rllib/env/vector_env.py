@@ -15,15 +15,21 @@ import numpy as np
 
 
 class VectorEnv:
-    def __init__(self, make_env: Callable[[], object], num_envs: int):
+    """`num_envs` envs with global indices `first_index` onwards: env i
+    is seeded by its global index, so a data-parallel learner's ranks,
+    each holding its slice, together hold the one-rank env set."""
+
+    def __init__(self, make_env: Callable[[], object], num_envs: int,
+                 first_index: int = 0):
         self.envs = [make_env() for _ in range(num_envs)]
         self.num_envs = num_envs
+        self.first_index = first_index
         self.observation_space = self.envs[0].observation_space
         self.action_space = self.envs[0].action_space
 
     def seed(self, seed: int):
         for i, e in enumerate(self.envs):
-            e.seed(seed + i)
+            e.seed(seed + self.first_index + i)
 
     def reset(self) -> np.ndarray:
         return np.stack([e.reset() for e in self.envs])

@@ -2,7 +2,8 @@
 
 Counterpart of `ray_tpu/rllib/evaluation/metrics.py` (parity:
 `rllib/evaluation/metrics.py:39` `collect_metrics`), for the local
-worker only: remote workers wait for the runtime port.
+worker, on one rank or on every rank of a data-parallel learner
+(`world_totals`): remote workers wait for the runtime port.
 """
 
 from __future__ import annotations
@@ -14,6 +15,16 @@ import numpy as np
 
 def collect_episodes(workers) -> List:
     return list(workers.local_worker.get_metrics())
+
+
+def world_totals(group, episodes, steps_sampled: int, steps_trained: int):
+    """Every rank's episodes and step counts -> the world's (episodes in
+    rank order, counts summed), the same on every rank: one collective
+    (`LearnerGroup.all_gather_object`)."""
+    parts = group.all_gather_object(
+        (list(episodes), steps_sampled, steps_trained))
+    return ([e for part in parts for e in part[0]],
+            sum(part[1] for part in parts), sum(part[2] for part in parts))
 
 
 def summarize_episodes(episodes, smoothed: List = None) -> dict:

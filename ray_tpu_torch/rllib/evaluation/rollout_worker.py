@@ -32,16 +32,22 @@ class RolloutWorker:
                  seed: Optional[int] = None,
                  observation_filter: str = "NoFilter",
                  env_config: Optional[dict] = None,
-                 pack_fragments: bool = False):
+                 pack_fragments: bool = False,
+                 first_env_index: int = 0):
         self.worker_index = worker_index
         env_config = dict(env_config or {})
         env_config["worker_index"] = worker_index
-        self.env = VectorEnv(lambda: env_creator(env_config), num_envs)
+        # `first_env_index`: this rank's slice of a data-parallel
+        # learner's envs starts there (seeds follow global indices).
+        self.env = VectorEnv(lambda: env_creator(env_config), num_envs,
+                             first_index=first_env_index)
         if seed is not None:
             self.env.seed(seed + worker_index * 1000)
             np.random.seed(seed + worker_index * 1000)
         cfg = dict(policy_config)
         if seed is not None:
+            # Parameter init and the rollout generator; the policy adds
+            # a data-parallel rank to the generator's seed only.
             cfg["seed"] = seed + worker_index
         self.policy = policy_cls(
             self.env.observation_space, self.env.action_space, cfg)

@@ -18,16 +18,26 @@ the feedforward, single-device path:
 - `_update_lock` serializes updates against rollout inference and
   weight reads/writes: the async optimizer runs `learn_on_batch` on a
   LearnerThread while samplers call `compute_actions` or `select`.
+- Data-parallel learning (`config["_learner_group"]`, a
+  `parallel.mesh.LearnerGroup` of D >= 2 ranks, set by the trainer):
+  rank 0's parameters are broadcast at construction; `apply_update`
+  exchanges the gradient between `backward` and the clip (the
+  collective seam of `jax_policy.py:311-329`): an fp32 all-reduce, or
+  the q8 all-reduce with this rank's error-feedback residual `ef_state`
+  (kernels K6a, K6b). The exchange is a psum, divided by D only when
+  the policy's loss is a mean over rows (`loss_reduction`); the stats
+  are reduced in one collective (`total_loss` like the gradient, the
+  per-row stats averaged). The rollout generator is seeded seed + rank.
 
-Left for later slices: the device mesh and SpecLayout, the q8
-all-reduce, `sgd_learn` (the fused minibatch loop), `compute_gradients`
-/`apply_gradients`, recurrent policies and bf16 casting of the whole
-parameter tree (policy-level `compute_dtype`; the Vision trunk's own
-bf16 compute is ported).
+Left for later slices: the fsdp layout, `sgd_learn` (the fused
+minibatch loop), `compute_gradients`/`apply_gradients`, recurrent
+policies and bf16 casting of the whole parameter tree (policy-level
+`compute_dtype`; the Vision trunk's own bf16 compute is ported).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -36,9 +46,15 @@ import torch
 
 from ...device import resolve_device
 from ...models import catalog
+from ...models.convert import flax_pack_plan
 from ...models.distributions import get_action_dist
+from ...parallel import collectives
 from .. import sample_batch as sb
 from .policy import Policy
+
+logger = logging.getLogger(__name__)
+
+LOSS_REDUCTIONS = ("sum", "mean")
 
 # Columns that the device-side loss consumes; everything else stays host-side.
 _DEVICE_COLUMNS = (
@@ -82,13 +98,21 @@ class TorchPolicy(Policy):
 
     loss_fn(policy, model, batch) -> (loss, stats): `batch` is a dict of
     device tensors; the loss calls `model(batch[OBS])` for the network
-    outputs. `stats` values are scalar tensors.
+    outputs. `stats` values are scalar tensors. `loss_reduction` says
+    how the loss reduces over rows, "sum" or "mean": it decides whether
+    the data-parallel exchange divides the summed gradient by D.
     """
 
     def __init__(self, observation_space, action_space, config: dict,
-                 loss_fn: Callable):
+                 loss_fn: Callable, loss_reduction: str):
         super().__init__(observation_space, action_space, config)
-        self.device = resolve_device(config.get("device", "cuda"))
+        if loss_reduction not in LOSS_REDUCTIONS:
+            raise ValueError(f"loss_reduction {loss_reduction!r}: one of "
+                             f"{LOSS_REDUCTIONS}")
+        self.loss_reduction = loss_reduction
+        self.group = config.get("_learner_group")
+        self.device = self.group.device if self.group is not None \
+            else resolve_device(config.get("device", "cuda"))
         if catalog.resolve_compute_dtype(
                 config.get("compute_dtype", "auto")) != torch.float32:
             raise NotImplementedError(
@@ -100,14 +124,56 @@ class TorchPolicy(Policy):
         self.model = catalog.get_model(
             observation_space, self.dist_dim, config.get("model"),
             generator=torch.Generator().manual_seed(seed)).to(self.device)
-        # Rollout noise: the uniforms of the K2 sampling kernel.
+        # Rollout noise: the uniforms of the K2 sampling kernel. The rank
+        # is part of this seed only: parameters start equal on every rank.
+        rank = self.group.rank if self.group is not None else 0
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(seed + rank)
         self._loss_fn = loss_fn
         self.preprocessor = catalog.get_preprocessor(observation_space)
         self.optimizer = default_optimizer(self.model.parameters(), config)
         self.global_timestep = 0
         self._update_lock = threading.Lock()
+        self._init_exchange(config.get("allreduce_codec", "auto"))
+
+    def _init_exchange(self, codec_value) -> None:
+        """The gradient exchange of a world of D >= 2 ranks: rank 0's
+        parameters broadcast, the codec, the q8 packing plan and
+        residual, the byte counts and the probe. One learner device
+        exchanges nothing, and q8 resolves to fp32 there, as in JAX
+        (`jax_policy.py:167-173`)."""
+        codec = collectives.resolve_codec(codec_value)
+        if self.group is None and codec == "q8":
+            logger.info("allreduce_codec=q8 with one learner device: "
+                        "nothing is exchanged; running fp32")
+            codec = "fp32"
+        self.allreduce_codec = codec
+        self.ef_state = None
+        # allreduce_bytes: JAX's analytic payload count; wire bytes: what
+        # this rank's transport really sends, padding included;
+        # allreduce_ms: the probe's time, once per update.
+        self.counters = {"allreduce_bytes": 0, "allreduce_wire_bytes": 0,
+                         "allreduce_ms": 0.0}
+        if self.group is None:
+            return
+        params = list(self.model.parameters())
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in params])
+            self.group.broadcast_(flat, src=0)
+            for p, v in zip(params, flat.split([p.numel() for p in params])):
+                p.copy_(v.view_as(p))
+        if codec == "q8":
+            plan = flax_pack_plan(self.model, collectives.Q8_BLOCK)
+            self._pack_index = plan.pack_index.to(self.device)
+            self._unpack_index = plan.unpack_index.to(self.device)
+            sizes = plan.leaf_sizes
+            self.ef_state = collectives.ef_zeros(plan.nb, self.device)
+        else:
+            sizes = [p.numel() for p in params]
+        self.allreduce_payload = collectives.payload_bytes(sizes, codec)
+        self.allreduce_wire = collectives.wire_bytes(sizes, codec)
+        self.allreduce_probe_ms = 1e3 * collectives.allreduce_probe_s(
+            self.group, sizes, codec)
 
     # ------------------------------------------------------------------
     def _to_device(self, array) -> torch.Tensor:
@@ -189,13 +255,51 @@ class TorchPolicy(Policy):
         loss, stats = self._loss_fn(self, self.model, dev_batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        stats = dict(stats)
+        if self.group is not None:
+            self._exchange_gradients()
+            stats = self._reduce_stats(stats)
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
-        stats = dict(stats)
         stats["grad_gnorm"] = clip_by_global_norm_(
             grads, self.config.get("grad_clip"))
         self.optimizer.step()
         return stats
+
+    def _exchange_gradients(self) -> None:
+        """The collective seam: every rank's gradient -> the world's, in
+        `p.grad`. fp32: one all-reduce of the flattened gradient. q8:
+        pack into the flax-ordered block slots, `psum_quantized` (K6a,
+        all-gather, K6b) with this rank's residual, unpack."""
+        params = list(self.model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        mean = self.loss_reduction == "mean"
+        if self.allreduce_codec == "q8":
+            packed = torch.cat([flat, flat.new_zeros(1)])[self._pack_index]
+            flat = collectives.psum_quantized(
+                packed, self.ef_state, self.group, mean)[self._unpack_index]
+        else:
+            self.group.all_reduce_(flat)
+            if mean:
+                flat = flat / self.group.world_size
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+        self.counters["allreduce_bytes"] += self.allreduce_payload
+        self.counters["allreduce_wire_bytes"] += self.allreduce_wire
+        self.counters["allreduce_ms"] += self.allreduce_probe_ms
+
+    def _reduce_stats(self, stats: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """All the stats in one all-reduce: `total_loss` reduced like the
+        gradient (summed for a sum loss), every per-row stat averaged."""
+        keys = list(stats)
+        summed = self.group.all_reduce_(torch.stack(
+            [stats[k].detach().float().reshape(()) for k in keys]))
+        world = self.group.world_size
+        return {k: v if k == "total_loss" and self.loss_reduction == "sum"
+                else v / world for k, v in zip(keys, summed)}
 
     def learn_on_batch(self, batch) -> Dict[str, float]:
         dev_batch = self._device_batch(batch)
@@ -227,16 +331,26 @@ class TorchPolicy(Policy):
     def get_state(self):
         with self._update_lock:
             opt_state = _to_host(self.optimizer.state_dict())
-        return {
+            ef_state = None if self.ef_state is None \
+                else _to_host(self.ef_state)
+        state = {
             "weights": self.get_weights(),
             "opt_state": opt_state,
             "global_timestep": self.global_timestep,
         }
+        if ef_state is not None:
+            # The q8 residual (packed layout): without it a restored
+            # learner re-accumulates quantization error from zero.
+            state["ef_state"] = ef_state
+        return state
 
     def set_state(self, state):
         self.set_weights(state["weights"])
         with self._update_lock:
             self.optimizer.load_state_dict(state["opt_state"])
+            if state.get("ef_state") is not None \
+                    and self.ef_state is not None:
+                self.ef_state.copy_(torch.as_tensor(state["ef_state"]))
         self.global_timestep = state.get("global_timestep", 0)
 
     def num_params(self) -> int:

@@ -17,14 +17,18 @@ from .torch_policy import TorchPolicy
 
 def build_torch_policy(name: str,
                        loss_fn: Callable,
+                       loss_reduction: str,
                        get_default_config: Optional[Callable] = None):
-    """Returns a TorchPolicy subclass named `name`."""
+    """Returns a TorchPolicy subclass named `name`. `loss_reduction`
+    ("sum" or "mean") declares how `loss_fn` reduces over rows: the
+    data-parallel gradient exchange divides by the world size only for
+    "mean" (`TorchPolicy._exchange_gradients`)."""
 
     def __init__(self, observation_space, action_space, config):
         cfg = deep_merge(
             {}, get_default_config() if get_default_config else {})
         deep_merge(cfg, config)
         TorchPolicy.__init__(self, observation_space, action_space, cfg,
-                             loss_fn=loss_fn)
+                             loss_fn=loss_fn, loss_reduction=loss_reduction)
 
     return type(name, (TorchPolicy,), {"__init__": __init__})

@@ -25,10 +25,16 @@ import ray_tpu_torch.rllib.evaluation.device_sampler
 import ray_tpu_torch.rllib.optimizers.async_samples_optimizer
 import ray_tpu_torch.rllib.env.device_env
 import ray_tpu_torch.rllib.optimizers.anakin_optimizer
+import ray_tpu_torch._private.serialization
+import ray_tpu_torch.parallel.collectives
+import ray_tpu_torch.parallel.distributed
+import ray_tpu_torch.parallel.mesh
+import ray_tpu_torch.parallel.q8_check
 from ray_tpu_torch.rllib.env import make_batched_env
 make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
 env = ray_tpu_torch.rllib.env.device_env.DeviceSyntheticAtari()
 env.reset(2, seed=0, device="cpu")
+ray_tpu_torch.parallel.q8_check.check_encode(2, seed=0, device="cpu")
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "ray_tpu"))

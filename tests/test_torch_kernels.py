@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from ray_tpu_torch._private import cuda_build
-from ray_tpu_torch.models import distributions
+from ray_tpu_torch.models import catalog, distributions
+from ray_tpu_torch.models.convert import flax_pack_plan
+from ray_tpu_torch.parallel import collectives, q8_check
 from ray_tpu_torch.rllib.agents.impala import vtrace
 from ray_tpu_torch.rllib.env import device_env, device_env_check
 from ray_tpu_torch.rllib.evaluation import device_sampler
@@ -474,11 +476,83 @@ def test_anakin_call_enqueues_without_a_host_sync(cuda):
         t.stop()
 
 
+def _nb(obs_shape, num_actions, dtype=np.float32):
+    """Blocks of a network's packed gradient (the exchange's shape)."""
+    from ray_tpu_torch.rllib.env.spaces import Box
+    model = catalog.get_model(Box(0, 255, obs_shape, dtype), num_actions,
+                              {})
+    return flax_pack_plan(model, collectives.Q8_BLOCK).nb
+
+
+@pytest.mark.gpu
+# The Nature CNN's packed gradient (1,654 blocks) live and with the edge
+# cases, the CartPole FC net's, a 64M-element buffer, and tiny buffers.
+@pytest.mark.parametrize("shape,edge", [("nature", False), ("nature", True),
+                                        ("cartpole", True), (65536, False),
+                                        (1, True), (5, True)])
+def test_q8_encode_kernel_matches_plain(cuda, shape, edge):
+    nb = {"nature": 1654, "cartpole": None}.get(shape, shape)
+    if nb is None:
+        nb = _nb((4,), 2)
+    before = collectives.Q8_ENCODE_KERNEL.launches
+    q8_check.check_encode(nb, seed=nb, edge=edge)
+    assert collectives.Q8_ENCODE_KERNEL.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [2, 8])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("nb", [1654, 7])
+def test_q8_gather_sum_kernel_matches_plain(cuda, world, mean, nb):
+    before = collectives.Q8_GATHER_SUM_KERNEL.launches
+    q8_check.check_gather_sum(world, nb, mean, seed=world * nb)
+    assert collectives.Q8_GATHER_SUM_KERNEL.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_q8_kernels_match_the_cpu(cuda):
+    """K6a and K6b on the card equal the plain versions on the CPU (which
+    the CPU tests hold equal to numpy's q8_quantize)."""
+    g_np, ef_np = q8_check.packed_case(64, seed=3)
+    out = {}
+    for device in ("cuda", "cpu"):
+        ef = torch.from_numpy(ef_np).to(device)
+        wire = collectives.q8_encode_ef(torch.from_numpy(g_np).to(device),
+                                        ef)
+        total = collectives.q8_gather_sum(torch.stack([wire, wire]), 64)
+        out[device] = [t.cpu() for t in (wire, ef, total)]
+    for card, host in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(card, host)
+
+
+@pytest.mark.gpu
+def test_q8_kernels_reject_what_they_cannot_take(cuda):
+    g = torch.zeros(2 * collectives.Q8_BLOCK, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        collectives.q8_encode_ef(g.double(), g.double())
+    with pytest.raises(ValueError, match="is on"):
+        collectives.q8_encode_ef(g, g.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        collectives.q8_encode_ef(
+            torch.zeros(2 * collectives.Q8_BLOCK + 1, device=cuda)[1:], g)
+    with pytest.raises(ValueError, match="contiguous"):
+        collectives.q8_encode_ef(g, torch.zeros(
+            4 * collectives.Q8_BLOCK, device=cuda)[::2])
+    wire = collectives.q8_encode_ef(g, torch.zeros_like(g))
+    with pytest.raises(ValueError, match="expected"):
+        collectives.q8_gather_sum(wire[None, :-4], 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        collectives.q8_gather_sum(
+            torch.stack([wire, wire], dim=1).t(), 2)
+
+
 def test_new_kernels_have_sources_and_entry_points():
     for kernel in (distributions.CATEGORICAL_K_KERNEL,
                    device_sampler.OBS_APPLY_KERNEL,
                    device_env.SYNTHETIC_ATARI_KERNEL,
-                   device_env.CARTPOLE_KERNEL):
+                   device_env.CARTPOLE_KERNEL,
+                   collectives.Q8_ENCODE_KERNEL,
+                   collectives.Q8_GATHER_SUM_KERNEL):
         source = kernel.source.read_text()
         assert kernel.source.is_file()
         assert f'extern "C" int {kernel.symbol}(' in source
@@ -492,6 +566,10 @@ def test_new_kernels_have_sources_and_entry_points():
     assert device_env.SYNTHETIC_ATARI_KERNEL.source.name == "device_env.cu"
     assert device_env.CARTPOLE_KERNEL.library_path() \
         == device_env.SYNTHETIC_ATARI_KERNEL.library_path()
+    # K6a and K6b share q8.cu's library.
+    assert collectives.Q8_ENCODE_KERNEL.source.name == "q8.cu"
+    assert collectives.Q8_GATHER_SUM_KERNEL.library_path() \
+        == collectives.Q8_ENCODE_KERNEL.library_path()
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -528,9 +606,10 @@ def test_build_all_runs_one_nvcc_per_source(monkeypatch):
         [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
          distributions.CATEGORICAL_K_KERNEL,
          device_sampler.OBS_APPLY_KERNEL, device_env.SYNTHETIC_ATARI_KERNEL,
-         device_env.CARTPOLE_KERNEL])
+         device_env.CARTPOLE_KERNEL, collectives.Q8_ENCODE_KERNEL,
+         collectives.Q8_GATHER_SUM_KERNEL])
     assert sorted(started) == ["categorical.cu", "device_env.cu",
-                               "obs_apply.cu", "vtrace.cu"]
+                               "obs_apply.cu", "q8.cu", "vtrace.cu"]
     assert sorted(reports) == sorted(started)
 
 

@@ -17,7 +17,8 @@ import torch
 from ray_tpu.models import catalog as jax_catalog
 from ray_tpu.rllib.env.spaces import Box as JaxBox
 from ray_tpu_torch.models import catalog
-from ray_tpu_torch.models.convert import flax_to_state_dict
+from ray_tpu_torch.models.convert import (flax_leaves, flax_pack_plan,
+                                          flax_to_state_dict)
 from ray_tpu_torch.rllib.env.spaces import Box
 
 # f32 on the CPU: both frameworks sum convolutions and matmuls in f32 in
@@ -137,3 +138,41 @@ def test_compute_dtype_resolution(monkeypatch):
         {"compute_dtype": "auto"}) == torch.bfloat16
     with pytest.raises(ValueError, match="unknown compute dtype"):
         catalog.resolve_compute_dtype("fp8")
+
+
+@pytest.mark.parametrize("kind", ["vision", "fc"])
+def test_flax_leaves_invert_the_converter(kind):
+    """The way back for gradients: `flax_leaves` of a converted
+    state_dict gives the flax leaves themselves, in jax's tree-flatten
+    order and each in its own element order; the exchange's pack plan
+    puts them, so flattened, in block-aligned slots and back."""
+    if kind == "vision":
+        _, params, model, _ = _vision_pair("f32")
+    else:
+        space = (8,)
+        jax_model = jax_catalog.get_model(
+            JaxBox(-1.0, 1.0, space, np.float32), 3,
+            {"fcnet_hiddens": [16, 16]})
+        params = jax_model.init(jax.random.PRNGKey(1),
+                                np.zeros((1,) + space, np.float32))
+        model = catalog.get_model(Box(-1.0, 1.0, space), 3,
+                                  {"fcnet_hiddens": [16, 16]})
+        model.load_state_dict(flax_to_state_dict(
+            jax.tree.map(np.asarray, params)))
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(params)]
+    got = flax_leaves(dict(model.named_parameters()),
+                      getattr(model, "conv_out_hw", None))
+    assert len(got) == len(want)
+    for (_, _, leaf), ref in zip(got, want):
+        np.testing.assert_array_equal(leaf.detach().numpy(), ref)
+    block = 1024
+    plan = flax_pack_plan(model, block)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    packed = torch.cat([flat, flat.new_zeros(1)])[plan.pack_index]
+    slots = [np.concatenate([ref.reshape(-1), np.zeros(
+        -(-ref.size // block) * block - ref.size, np.float32)])
+        for ref in want]
+    np.testing.assert_array_equal(packed.numpy(), np.concatenate(slots))
+    assert plan.leaf_sizes == [ref.size for ref in want]
+    assert plan.nb * block == packed.numel()
+    assert torch.equal(packed[plan.unpack_index], flat)
