@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (`ray_tpu_torch`) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py dp    # phase 6 alone, on a machine of 2+ cards
 
-Six phases, any failure exits non-zero (no phase is caught, nothing
+Eight phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -52,9 +53,26 @@ falls back to the CPU):
    one K6a and one K6b per q8 update per rank, V-trace once per update
    and the sampling tail once per env step, both ranks'
    weights must be equal bit for bit after every iteration, the
-   residuals finite and nonzero, and the q8 payload >= 3.5x smaller
-   than fp32. Then one q8 update of a seeded batch on the card world is
+   residuals finite and nonzero, the q8 payload >= 3.5x smaller
+   than fp32, and each rank's `global_timestep` the world's rows (its
+   own times 2). Then one q8 update of a seeded batch on the card world is
    held against the same update on a CPU world of 2 (1e-4).
+7. PPO on Atari pixels: `PPOTrainer` on SyntheticAtari-v0 with the
+   Nature CNN at `tuned_examples/atari-ppo.yaml`'s settings cut to one
+   process (16 envs x 128-step fragments, 4096-row train batches, 4
+   epochs of 512-row minibatches), 3 iterations: the sampling kernel
+   once per env step; the second iteration's `sgd_learn` enqueued under
+   `set_sync_debug_mode("error")` (any host sync inside the phase fails
+   it); the third profiled. Then two `sgd_learn` phases of the trained
+   weights on the card against the same phase on the CPU, with the same
+   permutations: the path's own (bf16 trunk, the last train batch, 4
+   epochs x 8 minibatches; 1e-2, and `grad_gnorm`, which bf16 rounding
+   dominates, within half the CPU's own bf16-to-f32 distance), and an
+   f32 one (TF32 off, a synthetic 1,024-row batch, 2 x 2; 1e-4).
+8. PPO on Pendulum: `PPOTrainer` on Pendulum-v0 with the [256, 256] FC
+   network and `free_log_std`, PPO's default config (8 envs x 200-step
+   fragments, 4000-row train batches, 30 epochs of 128-row minibatches),
+   3 iterations: the DiagGaussian kernel (K7) once per env step.
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
@@ -62,7 +80,9 @@ its thresholds) at the Anakin shapes and at N=37, and the q8 exchange's
 encode (K6a) and gather-sum (K6b) bit for bit against theirs: K6a at
 the Nature CNN's packed gradient, the CartPole FC net's and 64M
 elements, on live blocks and the codec's edge cases; K6b at D=2 and 8,
-with and without the division by D.
+with and without the division by D; and K7, the DiagGaussian
+sampling tail, at Pendulum's shape (8 x 1, timed) and at 4096 x 17,
+exploring and not (1e-6 + 1e-6 relative; the mean itself when not).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -72,6 +92,7 @@ Without a CUDA device, or without the rest of the repository beside
 it, the script exits non-zero before printing any result.
 """
 
+import gc
 import json
 import math
 import os
@@ -150,6 +171,46 @@ TRAINER_CONFIG = {
     "lr": 6e-4,
     "grad_clip": 40.0,
     "min_iter_time_s": 0,
+    "seed": 0,
+    "device": "cuda",
+}
+
+# Phase 7: tuned_examples/atari-ppo.yaml (2 workers x 8 envs) cut to one
+# process: 16 envs on the local worker. SyntheticAtari-v0 stands in for
+# the Pong ROM, which is not in the repository.
+PPO_ATARI_ENVS = 16
+PPO_ATARI_CONFIG = {
+    "env": "SyntheticAtari-v0",
+    "num_workers": 0,
+    "num_envs_per_worker": PPO_ATARI_ENVS,
+    "rollout_fragment_length": 128,
+    "train_batch_size": 4096,
+    "sgd_minibatch_size": 512,
+    "num_sgd_iter": 4,
+    "lr": 2.5e-4,
+    "lambda": 0.95,
+    "vf_clip_param": 10.0,
+    "entropy_coeff": 0.01,
+    "seed": 0,
+    "device": "cuda",
+}
+PPO_ITERS = 3  # 0 warms up, 1 runs under sync-debug mode, 2 is profiled
+# |card - CPU| <= TOL * (1 + |CPU|) on the last minibatch's stats of the
+# path's own phase (bf16 trunk, 4 epochs x 8 minibatches of 512). On an
+# H100 the stats other than grad_gnorm differed by at most 2.2e-3 (and
+# by 1.6e-4 after a single update).
+PPO_BF16_PHASE_TOL = 1e-2
+# bench.py's count for the Nature CNN (PERF.md): train FLOPs per row.
+NATURE_TRAIN_FLOPS_PER_ROW = 50.82e6
+
+# Phase 8: PPO's DEFAULT_CONFIG (ppo.py:23-39) on Pendulum-v0 with the
+# default [256, 256] FC network and a state-independent log_std.
+PPO_PENDULUM_ENVS = 8
+PPO_PENDULUM_CONFIG = {
+    "env": "Pendulum-v0",
+    "num_workers": 0,
+    "num_envs_per_worker": PPO_PENDULUM_ENVS,
+    "model": {"fcnet_hiddens": [256, 256], "free_log_std": True},
     "seed": 0,
     "device": "cuda",
 }
@@ -488,6 +549,65 @@ def check_categorical_k(k, N, A, timed):
     return row
 
 
+GAUSSIAN_TOL = 1e-6  # |kernel - plain| <= TOL + TOL * |plain|
+
+
+def gaussian_bytes_ops(B, d, explore=True):
+    """K7's bytes (inputs and normals read once, actions and logp written
+    once) and f32 operations (exp, mul, add, sub, div, square and two
+    sums per element; three per row)."""
+    nbytes = 4 * (2 * B * d + (B * d if explore else 0) + B * d + B)
+    return nbytes, 8 * B * d + 3 * B
+
+
+def check_diag_gaussian(B, d, timed):
+    """K7 against its plain version, exploring and not: actions and logp
+    within GAUSSIAN_TOL, and the mean itself when not exploring."""
+    import torch
+    from ray_tpu_torch.models import distributions
+    g = torch.Generator(device="cuda").manual_seed(B * d)
+    mean = torch.randn(B, d, generator=g, device="cuda") * 2.0
+    log_std = torch.rand(B, d, generator=g, device="cuda") * 3.0 - 2.0
+    inputs = torch.cat([mean, log_std], dim=1).contiguous()
+    z = torch.randn(B, d, generator=g, device="cuda")
+    err = 0.0
+    for explore in (True, False):
+        zz = z if explore else None
+        actions, logp = distributions.gaussian_sample_logp(inputs, zz,
+                                                           explore)
+        want_a, want_logp = distributions._gaussian_sample_logp_plain(
+            inputs, zz, explore)
+        torch.cuda.synchronize()
+        for got, want in ((actions, want_a), (logp, want_logp)):
+            bad = (got - want).abs() > GAUSSIAN_TOL + GAUSSIAN_TOL * \
+                want.abs()
+            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"diag_gaussian kernel disagrees with plain at B={B} "
+                    f"d={d} explore={explore}: max err "
+                    f"{float((got - want).abs().max())}")
+            err = max(err, float((got - want).abs().max()))
+        if not explore and not torch.equal(actions, mean):
+            raise AssertionError("diag_gaussian kernel: actions are not "
+                                 "the mean when not exploring")
+    row = {"B": B, "d": d, "max_abs_err": err}
+    if timed:
+        row["ms"] = time_call(
+            lambda: distributions.gaussian_sample_logp(inputs, z, True),
+            reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: distributions._gaussian_sample_logp_plain(
+                inputs, z, True), reps=500)
+        row["device_ms"] = device_ms(
+            lambda: distributions.gaussian_sample_logp(inputs, z, True),
+            "diag_gaussian_sample_kernel")
+    log(f"  diag_gaussian B={B} d={d}: max_abs_err={err:.3e} (tol "
+        f"{GAUSSIAN_TOL} + {GAUSSIAN_TOL}*|plain|), mean when not exploring"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+    return row
+
+
 ENV_TIMED_REPS, ENV_TIMED_WARMUP = 1000, 10
 
 
@@ -645,7 +765,10 @@ def profile_iteration(trainer):
     the kernels' device time) against the iteration's wall time, and the
     kernels that took the most device time. The profiler's own host
     overhead lengthens the wall time, so the idle share is an upper
-    bound."""
+    bound. User-annotated ranges (the optimizer's
+    `Optimizer.step#Adam.step` spans the kernels it launches) are not
+    device work of their own and are left out, so no kernel counts
+    twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -655,7 +778,8 @@ def profile_iteration(trainer):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     report = {
@@ -1256,6 +1380,11 @@ def dp_rank(rank, backend):
             raise AssertionError(
                 f"{codec}: kernel launches {launches} on this rank, the "
                 f"path ran {want}")
+        trained = trainer.optimizer.num_steps_trained
+        if policy.global_timestep != trained * DP_RANKS:
+            raise AssertionError(
+                f"{codec}: global_timestep {policy.global_timestep}, the "
+                f"world trained {trained} rows on each of {DP_RANKS} ranks")
         steady = rows[1:]  # the first includes cuDNN's warm-up
         steady_s = sum(r["s"] for r in steady)
         arm = {
@@ -1352,6 +1481,239 @@ def run_dp():
             for name in results[0]["q8"]["launches"]}
 
 
+# ---------------------------------------------------------------------
+# phases 7 and 8: PPO
+# ---------------------------------------------------------------------
+def sync_checked_sgd(policy):
+    """Make the policy's next `sgd_enqueue` run under sync-debug mode
+    "error": a host sync anywhere between the phase's first and last
+    update raises. The phase's one read (`read_stats`) follows it."""
+    import torch
+    real = policy.sgd_enqueue
+    checked = []
+
+    def enqueue(*args, **kwargs):
+        del policy.sgd_enqueue  # once
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked.append(True)
+        return out
+
+    policy.sgd_enqueue = enqueue
+    return checked
+
+
+def fc_train_flops_per_row(model):
+    """3 x 2 x the multiply-adds of every Linear layer: forward, and the
+    two products of the backward."""
+    import torch
+    macs = sum(m.weight.numel() for m in model.modules()
+               if isinstance(m, torch.nn.Linear))
+    return 6.0 * macs
+
+
+def run_ppo(name, config, kernel, num_envs, flops_per_row):
+    """`PPO_ITERS` iterations of `PPOTrainer(config)`: iteration 1's
+    minibatch phase sync-checked, the last one profiled. `kernel`, the
+    sampling tail of the action space, must launch once per env step.
+    Returns (trainer, launches, the last train batch as the learner
+    got it)."""
+    import torch
+    from ray_tpu_torch.rllib.agents.ppo import PPOTrainer
+
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = PPOTrainer(config=dict(config))
+    policy = trainer.get_policy()
+    log(f"  {name}: trainer built in {time.perf_counter() - t0:.2f} s: "
+        f"{policy.num_params()} params, trunk "
+        f"{policy.model.compute_dtype}, device {policy.device}")
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    timers = trainer.optimizer.timers
+    last_batch = []
+    real_learn = trainer.optimizer._learn
+
+    def learn(batch):
+        last_batch[:] = [batch]  # standardized in place by `_learn`
+        return real_learn(batch)
+
+    trainer.optimizer._learn = learn
+    iters, checked = [], []
+    for i in range(PPO_ITERS):
+        profiled = i == PPO_ITERS - 1
+        if i == 1:
+            checked = sync_checked_sgd(policy)
+        sample0, learn0 = timers["sample"].total, timers["learn"].total
+        t0 = time.perf_counter()
+        if profiled:
+            result, prof = profile_iteration(trainer)
+        else:
+            result = trainer.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        learner = result["info"]["learner"]
+        steps = result["timesteps_this_iter"]
+        learn_s = timers["learn"].total - learn0
+        rows = (steps // config["sgd_minibatch_size"]) \
+            * config["sgd_minibatch_size"] * config["num_sgd_iter"]
+        row = {"s": dt, "steps": steps, "sample_s":
+               timers["sample"].total - sample0, "learn_s": learn_s,
+               "learn_tflops": flops_per_row * rows / learn_s / 1e12,
+               "kl_coeff": policy.loss_state_host["kl_coeff"],
+               "learner": learner}
+        log(f"  {name} iter {i}{' (profiled)' if profiled else ''}"
+            f"{' (sgd phase sync-checked)' if i == 1 else ''}: {dt:.3f} s,"
+            f" {steps} env steps, {steps / dt:.1f} env steps/s, sample "
+            f"{row['sample_s']:.3f} s, learn {learn_s:.4f} s "
+            f"({row['learn_tflops']:.3f} TFLOP/s), total_loss "
+            f"{learner['total_loss']:.4f}, kl {learner['kl']:.5f}")
+        if not all(math.isfinite(v) for v in learner.values()):
+            raise AssertionError(f"{name}: non-finite stats at iter {i}")
+        iters.append(row)
+    if checked != [True]:
+        raise AssertionError(f"{name}: the sync-checked phase did not run")
+    launches = kernel.launches
+    sampled = result["num_steps_sampled"]
+    if launches != sampled // num_envs or launches <= 0:
+        raise AssertionError(
+            f"{name}: {kernel.name} launched {launches} times for "
+            f"{sampled // num_envs} env steps")
+    steady = iters[1:2]  # iteration 1: warm, and not under the profiler
+    summary = {
+        "iterations": PPO_ITERS,
+        "iter_s": [r["s"] for r in iters],
+        "env_steps_per_s_steady": steady[0]["steps"] / steady[0]["s"],
+        "sample_s_steady": steady[0]["sample_s"],
+        "learn_s_steady": steady[0]["learn_s"],
+        "learn_tflops_steady": steady[0]["learn_tflops"],
+        "learn_flops_per_row": flops_per_row,
+        "num_steps_sampled": sampled,
+        "num_steps_trained": result["num_steps_trained"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_before_bytes": held_before,
+        "launches": {kernel.name: launches},
+        "kl_coeff": [r["kl_coeff"] for r in iters],
+        "profiled_iteration": prof,
+    }
+    log(f"  {name} summary: {json.dumps(summary)}")
+    return trainer, launches, last_batch[0]
+
+
+def ppo_phase(config, weights, loss_state, batch, epochs, minibatch,
+              devices=("cuda", "cpu")):
+    """One `sgd_learn` of a `PPOTorchPolicy` built from `config` on each
+    of `devices`, from the same weights and loss state, on the same
+    batch with the same epoch permutations (drawn on the host and handed
+    to `epoch_permutation`). -> {device: the last minibatch's stats}."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib.agents.ppo import PPOTorchPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+    from ray_tpu_torch.rllib.policy import torch_policy
+    rng = np.random.default_rng(0)
+    rows = batch.count // minibatch * minibatch
+    perms = [torch.from_numpy(rng.permutation(rows)) for _ in range(epochs)]
+    space = Box(0, 255, (84, 84, 4), np.uint8)
+    real = torch_policy.epoch_permutation
+    out = {}
+    try:
+        for device in devices:
+            queue = list(perms)
+            torch_policy.epoch_permutation = \
+                lambda g, n, dev: queue.pop(0).to(dev)
+            policy = PPOTorchPolicy(space, Discrete(NUM_ACTIONS),
+                                    dict(config, device=device))
+            policy.set_weights(weights)
+            policy.update_loss_state(**loss_state)
+            out[device] = policy.sgd_learn(batch, epochs, minibatch)
+    finally:
+        torch_policy.epoch_permutation = real
+    return out
+
+
+def check_card_vs_cpu(out, tol, what, slack=None):
+    """|card - CPU| <= tol * (1 + |CPU|) on every stat, or, for a stat in
+    `slack`, within that stat's own allowance."""
+    slack = slack or {}
+    pairs = {k: [out["cuda"][k], v] for k, v in out["cpu"].items()}
+    log(f"  card vs CPU sgd_learn ({what}; tol {tol}"
+        + (f", slack {json.dumps(slack)}" if slack else "")
+        + f"): {json.dumps(pairs)}")
+    for k, (got, want) in pairs.items():
+        allowed = max(tol * (1.0 + abs(want)), slack.get(k, 0.0))
+        if not abs(got - want) <= allowed:
+            raise AssertionError(
+                f"card sgd_learn disagrees with CPU ({what}) on {k}: "
+                f"{got} vs {want} (allowed {allowed})")
+
+
+def check_ppo_against_cpu(trainer, last_batch, rows=1024, minibatch=512,
+                          epochs=2):
+    """The PPO Atari phase on the card against the same phase on the
+    CPU, twice:
+    - the path's own phase: its compute dtype (bf16 trunk), the
+      trainer's last train batch (standardized, 4,096 rows), its
+      minibatch size and epochs, from the trained weights and KL
+      coefficient. Every stat within `PPO_BF16_PHASE_TOL` * (1 + |CPU|);
+      `grad_gnorm`, which bf16 rounding noise dominates, within half
+      the distance between the CPU's bf16 and f32 phases (the card and
+      the CPU round differently; neither may stray further from the
+      other than bf16 itself moves the norm);
+    - f32 trunk, TF32 off, on a synthetic batch (uniform-noise frames,
+      random logits) of `rows` rows: within 1e-4 * (1 + |CPU|)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib import sample_batch as sb
+    policy = trainer.get_policy()
+    weights = policy.get_weights()
+    loss_state = dict(policy.loss_state_host)
+    path_cfg = {k: v for k, v in policy.config.items() if k != "device"}
+    dtype = policy.model.compute_dtype
+    path = (last_batch, PPO_ATARI_CONFIG["num_sgd_iter"],
+            PPO_ATARI_CONFIG["sgd_minibatch_size"])
+    out = ppo_phase(path_cfg, weights, loss_state, *path)
+    f32_cfg = dict(path_cfg, model=dict(path_cfg.get("model", {}),
+                                        compute_dtype="f32"))
+    cpu_f32 = ppo_phase(f32_cfg, weights, loss_state, *path,
+                        devices=("cpu",))["cpu"]
+    gap = abs(out["cpu"]["grad_gnorm"] - cpu_f32["grad_gnorm"])
+    log(f"  CPU phase, f32 trunk: {json.dumps(cpu_f32)}")
+    check_card_vs_cpu(
+        out, PPO_BF16_PHASE_TOL,
+        f"the path's phase: trunk {dtype}, {last_batch.count} rows, "
+        f"{path[1]} epochs x {last_batch.count // path[2]} minibatches",
+        slack={"grad_gnorm": 0.5 * gap})
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((rows, NUM_ACTIONS)).astype(np.float32)
+    actions = rng.integers(0, NUM_ACTIONS, rows)
+    z = logits - logits.max(1, keepdims=True)
+    logp = (z - np.log(np.exp(z).sum(1, keepdims=True)))[
+        np.arange(rows), actions]
+    batch = {
+        sb.OBS: rng.integers(0, 256, (rows, 84, 84, 4), dtype=np.uint8),
+        sb.ACTIONS: actions, sb.ACTION_DIST_INPUTS: logits,
+        sb.ACTION_LOGP: logp.astype(np.float32),
+        sb.VF_PREDS: rng.standard_normal(rows).astype(np.float32),
+        sb.ADVANTAGES: rng.standard_normal(rows).astype(np.float32),
+        sb.VALUE_TARGETS: rng.standard_normal(rows).astype(np.float32)}
+    cfg = {k: PPO_ATARI_CONFIG[k] for k in (
+        "lr", "lambda", "vf_clip_param", "entropy_coeff", "seed")}
+    cfg["model"] = {"compute_dtype": "f32"}
+    out = ppo_phase(cfg, weights, {}, sb.SampleBatch(batch), epochs,
+                    minibatch)
+    check_card_vs_cpu(out, 1e-4, f"synthetic batch, {epochs} epochs x "
+                      f"{rows // minibatch} minibatches of {minibatch}, "
+                      f"f32, TF32 off")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1372,13 +1734,23 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["dp"]:
+        # Phase 6 alone: over NCCL when the machine has 2+ cards.
+        cuda_build.build_all([vtrace.VTRACE_KERNEL,
+                              distributions.CATEGORICAL_KERNEL,
+                              collectives.Q8_ENCODE_KERNEL,
+                              collectives.Q8_GATHER_SUM_KERNEL])
+        log("phase 6 alone: IMPALATrainer, data-parallel learner")
+        log(json.dumps({"launches": run_dp()}))
+        return 0
 
     log("phase 1: build")
     kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
                distributions.CATEGORICAL_K_KERNEL,
                device_sampler.OBS_APPLY_KERNEL,
                device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
-               collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL]
+               collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL,
+               distributions.DIAG_GAUSSIAN_KERNEL]
     t0 = time.perf_counter()
     reports = cuda_build.build_all(kernels, verbose=True)
     log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
@@ -1403,6 +1775,8 @@ def main():
     check_vtrace(t_cp, n_cp, timed=False)
     check_categorical(ANAKIN_ENVS, NUM_ACTIONS, timed=False)
     check_categorical(n_cp, 2, timed=False)
+    # K2 at the shape phase 7's PPO Atari path gives it (16 envs).
+    check_categorical(PPO_ATARI_ENVS, NUM_ACTIONS, timed=False)
     k1_bound = bound_ms(4 * (6 * T * B + B), 17 * T * B)
     k2_bound = bound_ms(4 * (2 * B * A) + 8 * B + 4 * B, 9 * B * A + 3 * B)
     # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
@@ -1462,6 +1836,14 @@ def main():
         f"q8_gather_sum D={DP_RANKS} {k6b_bound[0]:.6f} ({k6b_bound[1]}), "
         f"nb {nb_nature} (Nature CNN), {nb_cartpole} (CartPole FC)")
 
+    # K7 at Pendulum's shape (8 envs, a 1-dim box; timed) and at 4096
+    # envs x a 17-dim box.
+    k7 = check_diag_gaussian(PPO_PENDULUM_ENVS, 1, timed=True)
+    check_diag_gaussian(4096, 17, timed=False)
+    k7_bound = bound_ms(*gaussian_bytes_ops(PPO_PENDULUM_ENVS, 1))
+    log(f"  bound ms: diag_gaussian B={PPO_PENDULUM_ENVS} d=1 "
+        f"{k7_bound[0]:.3e} ({k7_bound[1]})")
+
     log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
     check_update_against_cpu(weights)
@@ -1476,6 +1858,8 @@ def main():
     anakin_trainer, _, anakin_launches = run_anakin()
     check_anakin_update_against_cpu(anakin_trainer)
     anakin_trainer.stop()
+    del anakin_trainer  # its 1.85 GB frame buffer: not a later phase's
+    gc.collect()  # the trainer's reference cycles hold the buffer
     cartpole_launches = run_anakin_cartpole()
     for name in ("vtrace", "categorical"):
         launches[name] += anakin_launches[name] + cartpole_launches[name]
@@ -1485,6 +1869,28 @@ def main():
     dp_launches = run_dp()
     for name in ("vtrace", "categorical"):
         launches[name] += dp_launches[name]
+
+    log("phase 7: PPOTrainer at full width, Atari pixels (Nature CNN)")
+    trainer, ppo_k2, last_batch = run_ppo(
+        "ppo_atari", PPO_ATARI_CONFIG, distributions.CATEGORICAL_KERNEL,
+        PPO_ATARI_ENVS, NATURE_TRAIN_FLOPS_PER_ROW)
+    launches["categorical"] += ppo_k2
+    check_ppo_against_cpu(trainer, last_batch)
+    trainer.stop()
+
+    log("phase 8: PPOTrainer on Pendulum-v0 (DiagGaussian, K7)")
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.rllib.env.spaces import Box
+    fc = catalog.get_model(Box(-8.0, 8.0, (3,)), 2,
+                           PPO_PENDULUM_CONFIG["model"])
+    from ray_tpu_torch.rllib.agents.ppo import DEFAULT_CONFIG as PPO_DEFAULTS
+    pendulum_config = dict(PPO_PENDULUM_CONFIG, **{
+        k: PPO_DEFAULTS[k] for k in ("train_batch_size",
+                                     "sgd_minibatch_size", "num_sgd_iter")})
+    trainer, k7_launches, _ = run_ppo(
+        "ppo_pendulum", pendulum_config, distributions.DIAG_GAUSSIAN_KERNEL,
+        PPO_PENDULUM_ENVS, fc_train_flops_per_row(fc))
+    trainer.stop()
 
     kernels_line = {"kernels": [
         {"name": "vtrace", "route": "cuda",
@@ -1549,6 +1955,13 @@ def main():
          "max_abs_err": k6b["max_abs_err"],
          "ms": k6b["ms"], "plain_ms": k6b["plain_ms"],
          "bound_ms": k6b_bound[0], "bound_by": k6b_bound[1],
+         "library_ms": None},
+        {"name": "diag_gaussian_sample", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/diag_gaussian.cu",
+         "replaces": "ray_tpu/models/distributions.py:78",
+         "launches": k7_launches, "max_abs_err": k7["max_abs_err"],
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+         "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
          "library_ms": None},
     ]}
     log(json.dumps(kernels_line))

@@ -119,9 +119,6 @@ def get_model(obs_space, num_outputs: int, model_config: dict = None,
     if cfg["use_lstm"]:
         raise NotImplementedError(
             "use_lstm: the recurrent path is not ported yet")
-    if cfg["free_log_std"]:
-        raise NotImplementedError(
-            "free_log_std: continuous action spaces are not ported yet")
     dtype = _resolve_model_dtype(cfg)
     kwargs = {} if dtype is None else {"compute_dtype": dtype}
     if is_image_space(obs_space):
@@ -135,6 +132,7 @@ def get_model(obs_space, num_outputs: int, model_config: dict = None,
         hiddens=tuple(cfg["fcnet_hiddens"]),
         activation=cfg["fcnet_activation"],
         vf_share_layers=cfg["vf_share_layers"],
+        free_log_std=cfg["free_log_std"],
         generator=generator, **kwargs)
 
 

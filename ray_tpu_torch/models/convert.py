@@ -6,7 +6,8 @@ numpy arrays, as `JaxPolicy.get_weights()` returns it) into a
 
 - Conv kernels HWIO -> `Conv2d.weight` OIHW;
 - Dense kernels [in, out] -> `Linear.weight` [out, in];
-- biases unchanged.
+- biases, and bare parameter leaves (the FC network's `log_std` with
+  `free_log_std`), unchanged.
 
 The one trap: the flax Vision trunk flattens its NHWC conv output in
 (H, W, C) order into the `fc` kernel, while the port computes NCHW and
@@ -66,6 +67,9 @@ def flax_to_state_dict(params: Mapping,
     has_convs = any(k.startswith("conv_") for k in layers)
     out = {}
     for name, leaf in layers.items():
+        if not isinstance(leaf, Mapping):  # a bare parameter (log_std)
+            out[name] = torch.from_numpy(np.array(leaf, dtype=np.float32))
+            continue
         kernel = np.asarray(leaf["kernel"], dtype=np.float32)
         if kernel.ndim == 4:  # HWIO -> OIHW
             weight = kernel.transpose(3, 2, 0, 1)
@@ -112,12 +116,16 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor],
                 conv_out_hw: Optional[Tuple[int, int]] = None
                 ) -> List[Tuple[str, str, torch.Tensor]]:
     """Port tensors (parameters, gradients, or index tensors of their
-    shapes) -> [(layer, "bias" | "kernel", tensor in the flax leaf's
-    shape and element order)], in flax's tree-flatten order. The inverse
-    of `flax_to_state_dict`'s layout map."""
+    shapes) -> [(layer, "bias" | "kernel" | None, tensor in the flax
+    leaf's shape and element order)], in flax's tree-flatten order
+    (None for a bare parameter such as `log_std`). The inverse of
+    `flax_to_state_dict`'s layout map."""
     fc_hwc = _fc_hwc(state_dict, conv_out_hw)
     out = []
     for layer in sorted({k.split(".")[0] for k in state_dict}):
+        if layer in state_dict:  # a bare parameter, no sub-leaves
+            out.append((layer, None, state_dict[layer]))
+            continue
         weight = state_dict[f"{layer}.weight"]
         if weight.dim() == 4:  # OIHW -> HWIO
             kernel = weight.permute(2, 3, 1, 0)

@@ -1,8 +1,9 @@
 """Action distributions as functions of `dist_inputs` tensors.
 
 Counterpart of `ray_tpu/models/distributions.py`, trimmed to
-`Categorical` (the Atari north star's discrete actions). Each method is
-a plain tensor function, so the same code serves rollout inference and
+`Categorical` (the Atari north star's discrete actions) and
+`DiagGaussian` (Box actions, PPO's continuous path). Each method is a
+plain tensor function, so the same code serves rollout inference and
 the learner loss.
 
 The sampling tail (`sample`, `deterministic_sample` and the logp of the
@@ -11,19 +12,24 @@ chosen action) goes through the hand-written CUDA kernel
 version, `_sample_logp_plain`, on CPU tensors. Its k-step form
 (`sample_logp_k`: k draws from one distribution per row, the Sebulba
 selection window) is the same file's second kernel, with its plain
-version `_sample_logp_k_plain`. `logp`, `entropy` and `kl` stay plain
+version `_sample_logp_k_plain`. `DiagGaussian`'s sampling tail (mean +
+std * z or the mean, and the logp of that action) is the kernel
+`csrc/diag_gaussian.cu` (K7), with its plain version
+`_gaussian_sample_logp_plain`. `logp`, `entropy` and `kl` stay plain
 PyTorch: the learner differentiates them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._private.cuda_build import CudaKernel, stream_handle
-from ..rllib.env.spaces import Discrete
+from ..rllib.env.spaces import Box, Discrete
 
 # K2: one warp per row; see the source note in csrc/categorical.cu.
 CATEGORICAL_KERNEL = CudaKernel(
@@ -36,6 +42,13 @@ CATEGORICAL_K_KERNEL = CudaKernel(
     "categorical_k", "categorical.cu", "categorical_sample_k",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p])
+
+# K7: one warp per row; see the source note in csrc/diag_gaussian.cu.
+DIAG_GAUSSIAN_KERNEL = CudaKernel(
+    "diag_gaussian", "diag_gaussian.cu", "diag_gaussian_sample",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
      ctypes.c_void_p])
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -167,6 +180,81 @@ def sample_logp_k(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
         return _sample_logp_k_cuda(logits, u, k, explore)
 
 
+def gaussian_log_norm(d: int) -> float:
+    """0.5 * d * log(2 pi), the normalizer of a d-dim unit Gaussian."""
+    return 0.5 * d * math.log(2.0 * math.pi)
+
+
+def _gaussian_sample_logp_plain(inputs: torch.Tensor,
+                                z: Optional[torch.Tensor], explore: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the K7 kernel: same inputs, same steps.
+    inputs [B, 2d] = [mean, log_std], z [B, d] normals (used only when
+    exploring). Returns (actions [B, d] = mean + exp(log_std) * z, or
+    the mean; logp [B] of those actions), both sums over d taken in
+    column order as the kernel takes them."""
+    d = inputs.shape[-1] // 2
+    mean, log_std = inputs[:, :d], inputs[:, d:]
+    std = torch.exp(log_std)
+    actions = mean + std * z if explore else mean.clone()
+    y = (actions - mean) / std
+    y2 = y * y
+    sq = torch.zeros_like(inputs[:, 0])
+    sls = torch.zeros_like(inputs[:, 0])
+    for j in range(d):
+        sq = sq + y2[:, j]
+        sls = sls + log_std[:, j]
+    logp = (-0.5 * sq - gaussian_log_norm(d)) - sls
+    return actions, logp
+
+
+def _gaussian_sample_logp_cuda(inputs: torch.Tensor,
+                               z: Optional[torch.Tensor], explore: bool
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7 on [B, 2d] f32 inputs (and [B, d] f32 normals when
+    exploring). Allocates the f32 [B, d] actions and [B] logp."""
+    if inputs.dtype != torch.float32 or inputs.dim() != 2 \
+            or inputs.shape[1] % 2:
+        raise ValueError(f"diag_gaussian kernel takes [B, 2d] float32 "
+                         f"inputs, got {tuple(inputs.shape)} {inputs.dtype}")
+    if not inputs.is_contiguous():
+        raise ValueError("diag_gaussian kernel takes contiguous inputs")
+    B, d = inputs.shape[0], inputs.shape[1] // 2
+    if explore:
+        if z is None or z.shape != (B, d) or z.dtype != torch.float32 \
+                or z.device != inputs.device:
+            raise ValueError(
+                f"exploring needs float32 normals of shape {(B, d)} on "
+                "the inputs' device")
+        if not z.is_contiguous():
+            raise ValueError("diag_gaussian kernel takes contiguous "
+                             "normals")
+    actions = torch.empty(B, d, dtype=torch.float32, device=inputs.device)
+    logp = torch.empty(B, dtype=torch.float32, device=inputs.device)
+    DIAG_GAUSSIAN_KERNEL.launch(
+        inputs.data_ptr(), z.data_ptr() if explore else None,
+        actions.data_ptr(), logp.data_ptr(), B, d, int(bool(explore)),
+        gaussian_log_norm(d), stream_handle(inputs))
+    return actions, logp
+
+
+def gaussian_sample_logp(inputs: torch.Tensor,
+                         z: Optional[torch.Tensor] = None,
+                         explore: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(actions f32 [B, d], logp f32 [B]) for DiagGaussian inputs
+    [B, 2d]: mean + exp(log_std) * z when exploring, the mean otherwise.
+
+    CUDA tensors launch the K7 kernel (or raise); CPU tensors take the
+    plain version. No gradient flows: sampling has none."""
+    with torch.no_grad():
+        if inputs.device.type == "cpu":
+            return _gaussian_sample_logp_plain(inputs, z, explore)
+        if inputs.device.type != "cuda":
+            raise ValueError(f"no diag_gaussian kernel for {inputs.device}")
+        return _gaussian_sample_logp_cuda(inputs, z, explore)
+
+
 class Categorical:
     """inputs: logits (..., n)."""
 
@@ -221,12 +309,61 @@ class Categorical:
         return space.n
 
 
+class DiagGaussian:
+    """inputs: concat([mean, log_std], -1) over a Box of dim d."""
+
+    def __init__(self, inputs: torch.Tensor):
+        self.inputs = inputs
+        self.mean, self.log_std = torch.chunk(inputs, 2, dim=-1)
+        self.std = torch.exp(self.log_std)
+
+    def sample_with_logp(self, generator: Optional[torch.Generator] = None,
+                         explore: bool = True):
+        """Draw actions and their logp in one pass (K7 on the card).
+        The normals come from `generator` on the inputs' device."""
+        inputs = self.inputs.detach().float().contiguous()
+        z = None
+        if explore:
+            z = torch.randn(self.mean.shape, generator=generator,
+                            dtype=torch.float32, device=inputs.device)
+        return gaussian_sample_logp(inputs, z, explore)
+
+    def sample(self, generator: Optional[torch.Generator] = None):
+        return self.sample_with_logp(generator, explore=True)[0]
+
+    def deterministic_sample(self):
+        return self.mean
+
+    def logp(self, x):
+        d = self.mean.shape[-1]
+        return (-0.5 * torch.sum(((x - self.mean) / self.std) ** 2, dim=-1)
+                - gaussian_log_norm(d)
+                - torch.sum(self.log_std, dim=-1))
+
+    def entropy(self):
+        d = self.mean.shape[-1]
+        return torch.sum(self.log_std, dim=-1) + \
+            0.5 * d * (1.0 + math.log(2.0 * math.pi))
+
+    def kl(self, other: "DiagGaussian"):
+        return torch.sum(
+            other.log_std - self.log_std
+            + (self.std ** 2 + (self.mean - other.mean) ** 2)
+            / (2.0 * other.std ** 2) - 0.5, dim=-1)
+
+    @staticmethod
+    def required_input_dim(space) -> int:
+        return 2 * int(np.prod(space.shape))
+
+
 def get_action_dist(action_space):
     """Map a space to (dist_class, required_input_dim) — parity:
     `ModelCatalog.get_action_dist` (`rllib/models/catalog.py:109`).
-    Only Discrete is ported; Box and MultiDiscrete wait for later
-    slices."""
+    MultiDiscrete and the other spaces wait for later slices."""
     if isinstance(action_space, Discrete):
         return Categorical, action_space.n
+    if isinstance(action_space, Box):
+        return DiagGaussian, DiagGaussian.required_input_dim(action_space)
     raise NotImplementedError(
-        f"action space {action_space} is not ported yet (Discrete only)")
+        f"action space {action_space} is not ported yet (Discrete and "
+        "Box only)")

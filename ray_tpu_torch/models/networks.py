@@ -63,12 +63,17 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
 
 
 class FullyConnectedNetwork(nn.Module):
-    """MLP with separate (or shared) policy and value towers."""
+    """MLP with separate (or shared) policy and value towers.
+
+    `free_log_std` (Box policies): the logits layer emits the d =
+    num_outputs / 2 means only, and a state-independent `log_std`
+    parameter (zeros at init) is broadcast after them, as in flax."""
 
     def __init__(self, obs_dim: int, num_outputs: int,
                  hiddens: Sequence[int] = (256, 256),
                  activation: str = "tanh",
                  vf_share_layers: bool = False,
+                 free_log_std: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -82,7 +87,13 @@ class FullyConnectedNetwork(nn.Module):
             self.add_module(f"fc_{i}", nn.Linear(last, size))
             self.hidden_names.append(f"fc_{i}")
             last = size
-        self.logits = nn.Linear(last, num_outputs)
+        if free_log_std and num_outputs % 2:
+            raise ValueError(f"free_log_std needs an even num_outputs, "
+                             f"got {num_outputs}")
+        num_out = num_outputs // 2 if free_log_std else num_outputs
+        self.logits = nn.Linear(last, num_out)
+        self.log_std = nn.Parameter(torch.zeros(num_out)) \
+            if free_log_std else None
         if vf_share_layers:
             self.value = nn.Linear(last, 1)
         else:
@@ -107,6 +118,9 @@ class FullyConnectedNetwork(nn.Module):
         x = obs.reshape(obs.shape[0], -1).to(self.compute_dtype)
         h = self._tower(x, self.hidden_names)
         logits = _linear(h, self.logits, torch.float32)
+        if self.log_std is not None:
+            logits = torch.cat(
+                [logits, self.log_std.expand_as(logits)], dim=-1)
         v = h if self.vf_share_layers else self._tower(x, self.value_names)
         value = _linear(v, self.value, torch.float32)
         return logits, value[..., 0]

@@ -128,9 +128,19 @@ def launch(fn: Callable, world_size: int, backend: str, *args: Any,
     done = set()
     failure = None
     deadline = time.monotonic() + timeout
+    def take(payload) -> None:
+        nonlocal failure
+        rank, ok, value, tb = pickle.loads(payload)
+        done.add(rank)
+        if ok:
+            out[rank] = value
+        elif failure is None:
+            value.add_note(f"raised on rank {rank} of {world_size}:\n{tb}")
+            failure = value
+
     try:
-        # Drain the queue before joining: a rank blocks on exit until
-        # its result has been read.
+        # Read results while the ranks run: a large result blocks its
+        # rank's exit until it has been read.
         while len(done) < world_size and failure is None:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -139,22 +149,27 @@ def launch(fn: Callable, world_size: int, backend: str, *args: Any,
                     f"{timeout} s (ranks done: {sorted(done)})")
                 break
             try:
-                rank, ok, value, tb = pickle.loads(
-                    results.get(timeout=min(left, 1.0)))
-            except queue_mod.Empty:
-                for rank, p in enumerate(procs):
-                    if rank not in done and p.exitcode is not None:
-                        failure = RuntimeError(
-                            f"rank {rank} exited with code {p.exitcode} "
-                            "without a result")
+                take(results.get(timeout=min(left, 1.0)))
                 continue
-            done.add(rank)
-            if ok:
-                out[rank] = value
-            else:
-                value.add_note(f"raised on rank {rank} of {world_size}:\n"
-                               f"{tb}")
-                failure = value
+            except queue_mod.Empty:
+                pass
+            exited = [rank for rank, p in enumerate(procs)
+                      if rank not in done and p.exitcode is not None]
+            if not exited:
+                continue
+            # A small result does not hold its rank back: it may have
+            # been written, and the rank gone, since the wait above
+            # timed out. Read what is there before calling a rank lost.
+            while True:
+                try:
+                    take(results.get_nowait())
+                except queue_mod.Empty:
+                    break
+            for rank in exited:
+                if rank not in done and failure is None:
+                    failure = RuntimeError(
+                        f"rank {rank} exited with code "
+                        f"{procs[rank].exitcode} without a result")
     finally:
         for p in procs:
             if failure is not None and p.is_alive():

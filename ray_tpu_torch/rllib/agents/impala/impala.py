@@ -12,7 +12,10 @@ card. Remote workers wait for a later slice; asking for them raises.
 With `num_gpus_for_learner` = D >= 2 each rank of a `torch.distributed`
 world runs local mode on 1/D of the envs and of each train batch and
 exchanges gradients (fp32 or q8); the data-parallel Anakin and Sebulba
-paths are not ported yet.
+paths are not ported yet. With `sgd_minibatch_size` set, the learner
+runs `num_sgd_iter` epochs of whole-fragment minibatches through
+`TorchPolicy.sgd_learn` (`async_samples_optimizer.py:93-97` in the JAX
+package); without it, each train batch is one `learn_on_batch`.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ logger = logging.getLogger(__name__)
 
 _NOT_PORTED = {
     "num_workers": "remote rollout workers",
-    "sgd_minibatch_size": "the fused minibatch-SGD program",
 }
 
 
@@ -50,6 +52,10 @@ def make_async_optimizer(workers, config):
         rollout_fragment_length=config["rollout_fragment_length"],
         learner_queue_size=config["learner_queue_size"],
         num_sgd_iter=config["num_sgd_iter"],
+        sgd_minibatch_size=config.get("sgd_minibatch_size", 0),
+        # Minibatches shuffle and slice whole fragments, so V-trace's
+        # [B, T] reshape stays valid.
+        sgd_sequence_length=config["rollout_fragment_length"],
         # Sebulba inline actors: batched device inference on the learner
         # process (see `InlineActorThread`).
         num_inline_actors=config.get("num_inline_actors", 0),
@@ -91,7 +97,9 @@ def _validate_world(config):
     if world < 2:
         return
     for key, what in (("anakin", "the Anakin path's exchange over NCCL"),
-                      ("num_inline_actors", "Sebulba inline actors")):
+                      ("num_inline_actors", "Sebulba inline actors"),
+                      ("sgd_minibatch_size", "minibatch SGD over the "
+                                             "world's batch")):
         if config.get(key):
             raise NotImplementedError(
                 f"num_gpus_for_learner={world} with {key}: the "
@@ -170,6 +178,11 @@ def validate_config(config):
             "train_batch_size must be a multiple of "
             "rollout_fragment_length (V-trace sequences reshape to "
             "[B, T] with no padding)")
+    mb = config.get("sgd_minibatch_size", 0)
+    if mb and mb % config["rollout_fragment_length"] != 0:
+        raise ValueError(
+            "sgd_minibatch_size must be a multiple of "
+            "rollout_fragment_length")
     if not config.get("pack_fragments", True):
         raise ValueError("IMPALA requires pack_fragments=True")
 

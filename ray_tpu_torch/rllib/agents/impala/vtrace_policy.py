@@ -42,8 +42,9 @@ DEFAULT_CONFIG = with_common_config({
     "use_gae": False,
     "learner_queue_size": 16,
     "num_sgd_iter": 1,
-    # 0 = one full-batch update per train batch (the fused minibatch-SGD
-    # program is not ported yet).
+    # 0 = one full-batch update per train batch; else num_sgd_iter
+    # epochs of minibatches of this many rows (whole fragments) through
+    # `TorchPolicy.sgd_learn`.
     "sgd_minibatch_size": 0,
     # Sebulba inline actors (`optimizers/async_samples_optimizer.py`
     # InlineActorThread): actor threads on the trainer's process step

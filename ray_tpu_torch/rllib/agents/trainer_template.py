@@ -2,9 +2,10 @@
 
 Counterpart of `ray_tpu/rllib/agents/trainer_template.py` (parity:
 `rllib/agents/trainer_template.py:9` `build_trainer`): an algorithm is a
-policy class + an optimizer choice + a config check. Every algorithm of
-this slice names its optimizer (the synchronous default and the other
-hooks of `build_trainer` come with the algorithms that use them).
+policy class + an optimizer choice (`SyncSamplesOptimizer` by default)
++ a config check + the `after_optimizer_step` hook (PPO's adaptive KL).
+The other hooks of `build_trainer` come with the algorithms that use
+them.
 """
 
 from __future__ import annotations
@@ -12,15 +13,19 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+from ..optimizers.sync_samples_optimizer import SyncSamplesOptimizer
 from .trainer import Trainer
 
 
 def build_trainer(name: str,
                   default_policy,
-                  make_policy_optimizer: Callable,
+                  make_policy_optimizer: Optional[Callable] = None,
                   default_config: Optional[dict] = None,
-                  validate_config: Optional[Callable] = None):
-    """Returns a Trainer subclass named `name`."""
+                  validate_config: Optional[Callable] = None,
+                  after_optimizer_step: Optional[Callable] = None):
+    """Returns a Trainer subclass named `name`. `after_optimizer_step(
+    trainer, fetches)` runs after every optimizer step, inside the
+    iteration's pacing loop (`trainer_template.py:63-68`)."""
 
     class _Trainer(Trainer):
         _default_config = default_config or Trainer._default_config
@@ -29,7 +34,12 @@ def build_trainer(name: str,
             if validate_config:
                 validate_config(config)
             self.workers = self._make_workers(default_policy)
-            self.optimizer = make_policy_optimizer(self.workers, config)
+            if make_policy_optimizer:
+                self.optimizer = make_policy_optimizer(self.workers, config)
+            else:
+                self.optimizer = SyncSamplesOptimizer(
+                    self.workers,
+                    train_batch_size=config["train_batch_size"])
 
         def _train(self):
             # Iteration pacing (parity: trainer_template.py:117-135): keep
@@ -44,7 +54,9 @@ def build_trainer(name: str,
             min_steps = self.config.get("timesteps_per_iteration") or 0
             world = 1 if self.group is None else self.group.world_size
             while True:
-                self.optimizer.step()
+                fetches = self.optimizer.step()
+                if after_optimizer_step:
+                    after_optimizer_step(self, fetches)
                 done = (time.monotonic() - start >= min_time
                         and (self.optimizer.num_steps_sampled - steps0)
                         * world >= min_steps)

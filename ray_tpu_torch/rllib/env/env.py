@@ -1,8 +1,9 @@
 """Single-agent environment API + built-in environments.
 
 The port's own copy of `ray_tpu/rllib/env/env.py` (numpy only), trimmed
-to the two envs this slice runs: CartPole (the learning test) and
-SyntheticAtari (84x84x4 uint8 frames, 6 actions; the stand-in for ALE).
+to the envs the port runs: CartPole (the learning tests), Pendulum (the
+continuous-action PPO path) and SyntheticAtari (84x84x4 uint8 frames, 6
+actions; the stand-in for ALE).
 
 API: `reset() -> obs`, `step(action) -> (obs, reward, done, info)` —
 the same contract RLlib's samplers expect.
@@ -97,6 +98,48 @@ class CartPole(Env):
         self._t += 1
         done = bool(violation[0]) or self._t >= self.max_steps
         return self._state.astype(np.float32), 1.0, done, {}
+
+
+class Pendulum(Env):
+    """Torque-controlled pendulum swing-up (matching gym Pendulum-v0:
+    200-step episodes, continuous action in [-2, 2]). The env clips the
+    torque itself, so a policy's unclipped Gaussian draw is a valid
+    action."""
+
+    def __init__(self, max_steps: int = 200):
+        self.max_speed = 8.0
+        self.max_torque = 2.0
+        self.dt = 0.05
+        self.g, self.m, self.l = 10.0, 1.0, 1.0
+        self.max_steps = max_steps
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = Box(-high, high)
+        self.action_space = Box(-self.max_torque, self.max_torque, shape=(1,))
+        self._rng = np.random.default_rng()
+
+    def reset(self):
+        self._theta = self._rng.uniform(-np.pi, np.pi)
+        self._thetadot = self._rng.uniform(-1.0, 1.0)
+        self._t = 0
+        return self._obs()
+
+    def _obs(self):
+        return np.array([np.cos(self._theta), np.sin(self._theta),
+                         self._thetadot], dtype=np.float32)
+
+    def step(self, action):
+        u = float(np.clip(np.asarray(action).reshape(-1)[0],
+                          -self.max_torque, self.max_torque))
+        th, thdot = self._theta, self._thetadot
+        norm_th = ((th + np.pi) % (2 * np.pi)) - np.pi
+        cost = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = thdot + (3 * self.g / (2 * self.l) * np.sin(th)
+                         + 3.0 / (self.m * self.l ** 2) * u) * self.dt
+        thdot = np.clip(thdot, -self.max_speed, self.max_speed)
+        th = th + thdot * self.dt
+        self._theta, self._thetadot = th, thdot
+        self._t += 1
+        return self._obs(), -float(cost), self._t >= self.max_steps, {}
 
 
 class SyntheticAtari(Env):

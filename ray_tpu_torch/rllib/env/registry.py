@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from .env import CartPole, SyntheticAtari
+from .env import CartPole, Pendulum, SyntheticAtari
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -124,6 +124,7 @@ register_batched_env("CartPole-v1", _batched_cartpole(500))
 # Built-ins (same ids the JAX package registers).
 register_env("CartPole-v0", lambda cfg: CartPole(max_steps=200))
 register_env("CartPole-v1", lambda cfg: CartPole(max_steps=500))
+register_env("Pendulum-v0", lambda cfg: Pendulum())
 register_env("SyntheticAtari-v0",
              lambda cfg: SyntheticAtari(
                  episode_len=cfg.get("episode_len", 1000),

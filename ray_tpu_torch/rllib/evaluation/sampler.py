@@ -4,8 +4,8 @@ Counterpart of `ray_tpu/rllib/evaluation/sampler.py` (parity:
 `rllib/evaluation/sampler.py:60,226`, `SyncSampler` around
 `_env_runner`), feedforward only: poll the vectorized env, batch
 observations, one `compute_actions` per step (one network forward and
-one K2 sampling launch covering all envs), build per-env trajectories,
-postprocess on episode end or fragment truncation with value
+one sampling-tail launch, K2 or K7, covering all envs), build per-env
+trajectories, postprocess on episode end or fragment truncation with value
 bootstrapping. Recurrent state threading, horizon truncation, ExternalEnv
 action relabeling and non-exploring rollouts wait for later slices.
 """

@@ -44,13 +44,16 @@ class LearnerThread(threading.Thread):
     """
 
     def __init__(self, local_worker, learner_queue_size: int = 16,
-                 num_sgd_iter: int = 1):
+                 num_sgd_iter: int = 1, sgd_minibatch_size: int = 0,
+                 sgd_sequence_length: int = 1):
         super().__init__(daemon=True, name="learner")
         self.local_worker = local_worker
         self.inqueue: "queue.Queue[SampleBatch]" = queue.Queue(
             maxsize=learner_queue_size)
         self.outqueue: "queue.Queue" = queue.Queue()
         self.num_sgd_iter = num_sgd_iter
+        self.sgd_minibatch_size = sgd_minibatch_size
+        self.sgd_sequence_length = sgd_sequence_length
         self.stopped = False
         self.stats = {}
         self.error = None  # first exception that killed the thread
@@ -76,8 +79,15 @@ class LearnerThread(threading.Thread):
         self.learner_queue_size.push(self.inqueue.qsize())
         with self.grad_timer:
             policy = self.local_worker.policy
-            for _ in range(self.num_sgd_iter):
-                stats = policy.learn_on_batch(batch)
+            if self.sgd_minibatch_size:
+                # Sequence-granular shuffling keeps V-trace fragments
+                # contiguous inside each minibatch.
+                stats = policy.sgd_learn(
+                    batch, self.num_sgd_iter, self.sgd_minibatch_size,
+                    seq_len=self.sgd_sequence_length)
+            else:
+                for _ in range(self.num_sgd_iter):
+                    stats = policy.learn_on_batch(batch)
             self.stats = stats
         self.outqueue.put(batch.count)
 
@@ -131,6 +141,8 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
                  rollout_fragment_length: int = 50,
                  learner_queue_size: int = LEARNER_QUEUE_MAX_SIZE,
                  num_sgd_iter: int = 1,
+                 sgd_minibatch_size: int = 0,
+                 sgd_sequence_length: int = 1,
                  num_inline_actors: int = 0,
                  inline_env=None,
                  inline_num_envs: int = 1,
@@ -151,7 +163,9 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
         self.learner = LearnerThread(
             workers.local_worker,
             learner_queue_size=learner_queue_size,
-            num_sgd_iter=num_sgd_iter)
+            num_sgd_iter=num_sgd_iter,
+            sgd_minibatch_size=sgd_minibatch_size,
+            sgd_sequence_length=sgd_sequence_length)
         # The learner thread's grad timer IS this optimizer's learn
         # phase.
         self.timers["learn"] = self.learner.grad_timer

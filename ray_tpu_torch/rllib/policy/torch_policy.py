@@ -4,9 +4,10 @@ Counterpart of `ray_tpu/rllib/policy/jax_policy.py` (`JaxPolicy`), for
 the feedforward, single-device path:
 
 - `compute_actions`: one network forward returns (dist_inputs, value);
-  the sampling tail (draw + logp) is the K2 kernel on the card
-  (`models/distributions.py`), with uniforms drawn from the policy's own
-  `torch.Generator`, seeded from `config["seed"]`.
+  the sampling tail (draw + logp) is the K2 kernel (Discrete) or K7
+  (Box) on the card (`models/distributions.py`), with uniforms or
+  normals drawn from the policy's own `torch.Generator`, seeded from
+  `config["seed"]`.
 - `learn_on_batch`: loss -> backward -> clip by global norm -> Adam,
   the optax chain of `default_optimizer` (`jax_policy.py:57-63`), run
   by `apply_update`, which leaves the stats on the device (the Anakin
@@ -29,10 +30,23 @@ the feedforward, single-device path:
   are reduced in one collective (`total_loss` like the gradient, the
   per-row stats averaged). The rollout generator is seeded seed + rank.
 
-Left for later slices: the fsdp layout, `sgd_learn` (the fused
-minibatch loop), `compute_gradients`/`apply_gradients`, recurrent
-policies and bf16 casting of the whole parameter tree (policy-level
-`compute_dtype`; the Vision trunk's own bf16 compute is ported).
+- `sgd_learn`: the minibatch-SGD phase of `jax_policy.py:502-621`
+  (PPO, and IMPALA with `sgd_minibatch_size`): `num_sgd_iter` epochs,
+  each one on-device permutation of whole sequences
+  (`epoch_permutation`, from the policy's device generator) and its
+  minibatches through `apply_update`, all enqueued with no host sync
+  (`sgd_enqueue`) and read once at the end.
+- `loss_state`: a dict of 0-d f32 device tensors from
+  `config["loss_state"]` that the loss reads (PPO's adaptive
+  `kl_coeff`), changed between updates by `update_loss_state`.
+- `global_timestep` counts the world's rows: on a data-parallel rank
+  its own rows times D, every rank holding an equal share
+  (`jax_policy.py:498`, `:548`).
+
+Left for later slices: the fsdp layout,
+`compute_gradients`/`apply_gradients`, recurrent policies and bf16
+casting of the whole parameter tree (policy-level `compute_dtype`; the
+Vision trunk's own bf16 compute is ported).
 """
 
 from __future__ import annotations
@@ -124,14 +138,20 @@ class TorchPolicy(Policy):
         self.model = catalog.get_model(
             observation_space, self.dist_dim, config.get("model"),
             generator=torch.Generator().manual_seed(seed)).to(self.device)
-        # Rollout noise: the uniforms of the K2 sampling kernel. The rank
-        # is part of this seed only: parameters start equal on every rank.
+        # Rollout noise (K2's uniforms, K7's normals) and the SGD epochs'
+        # permutations. The rank is part of this seed only: parameters
+        # start equal on every rank.
         rank = self.group.rank if self.group is not None else 0
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + rank)
         self._loss_fn = loss_fn
         self.preprocessor = catalog.get_preprocessor(observation_space)
         self.optimizer = default_optimizer(self.model.parameters(), config)
+        # Device scalars the loss reads, and their host values (read by
+        # update hooks and get_state without a device->host copy).
+        self.loss_state: Dict[str, torch.Tensor] = {}
+        self.loss_state_host: Dict[str, float] = {}
+        self.update_loss_state(**(config.get("loss_state") or {}))
         self.global_timestep = 0
         self._update_lock = threading.Lock()
         self._init_exchange(config.get("allreduce_codec", "auto"))
@@ -305,12 +325,74 @@ class TorchPolicy(Policy):
         dev_batch = self._device_batch(batch)
         with self._update_lock:
             stats = self.apply_update(dev_batch)
-        self.global_timestep += batch.count if hasattr(batch, "count") \
-            else len(next(iter(batch.values())))
-        # One device->host copy for all the stats.
-        values = torch.stack([v.detach().float().reshape(())
-                              for v in stats.values()]).tolist()
-        return dict(zip(stats.keys(), values))
+        self.global_timestep += self._world_rows(
+            batch.count if hasattr(batch, "count")
+            else len(next(iter(batch.values()))))
+        return read_stats(stats)
+
+    def sgd_learn(self, batch, num_sgd_iter: int, minibatch_size: int,
+                  seq_len: int = 1) -> Dict[str, float]:
+        """The whole minibatch-SGD phase (`jax_policy.py:502-549`):
+        `sgd_enqueue`, then one device->host read of the last
+        minibatch's stats."""
+        return read_stats(self.sgd_enqueue(batch, num_sgd_iter,
+                                           minibatch_size, seq_len))
+
+    def sgd_enqueue(self, batch, num_sgd_iter: int, minibatch_size: int,
+                    seq_len: int = 1) -> Dict[str, torch.Tensor]:
+        """Enqueue `num_sgd_iter` epochs of minibatch updates with no
+        host sync; return the last minibatch's stats as device tensors.
+
+        The remainder rows are dropped so that minibatches tile exactly.
+        Each epoch permutes whole sequences of `seq_len` rows (rows when
+        `seq_len == 1`, V-trace fragments otherwise) with one
+        `epoch_permutation` drawn on the device, gathers the batch in
+        that order once, and runs its minibatches through `apply_update`
+        (so a data-parallel rank exchanges every minibatch's gradient).
+        BOOTSTRAP_OBS, one row per sequence, follows the sequence
+        permutation (`jax_policy.py:589-592`)."""
+        batch, num_mb = _tile_minibatches(batch, minibatch_size, seq_len)
+        dev = self._device_batch(batch)
+        boot = dev.pop(sb.BOOTSTRAP_OBS, None)
+        num_seq = num_mb * minibatch_size // seq_len
+        offsets = torch.arange(seq_len, device=self.device)
+        seqs_per_mb = minibatch_size // seq_len
+        with self._update_lock:
+            for _ in range(num_sgd_iter):
+                perm = epoch_permutation(self.generator, num_seq,
+                                         self.device)
+                idx = (perm[:, None] * seq_len + offsets).reshape(-1)
+                shuffled = {k: v[idx] for k, v in dev.items()}
+                boot_shuffled = None if boot is None else boot[perm]
+                for m in range(num_mb):
+                    mb = {k: v[m * minibatch_size:(m + 1) * minibatch_size]
+                          for k, v in shuffled.items()}
+                    if boot is not None:
+                        mb[sb.BOOTSTRAP_OBS] = boot_shuffled[
+                            m * seqs_per_mb:(m + 1) * seqs_per_mb]
+                    stats = self.apply_update(mb)
+        self.global_timestep += self._world_rows(batch.count)
+        return stats
+
+    def _world_rows(self, rows: int) -> int:
+        """`rows` of this rank -> the world's. The trainer splits the
+        envs evenly and every rank learns on whole fragments
+        (`impala._validate_world`), so each rank holds the same count:
+        no collective is needed."""
+        return rows if self.group is None else rows * self.group.world_size
+
+    def update_loss_state(self, **kwargs) -> None:
+        """Set loss-state scalars. A known key is filled in place (a
+        kernel launch with the value as its argument: no host->device
+        copy, no sync)."""
+        for k, v in kwargs.items():
+            v = float(np.float32(v))  # the device value, as a float
+            if k in self.loss_state:
+                self.loss_state[k].fill_(v)
+            else:
+                self.loss_state[k] = torch.full(
+                    (), v, dtype=torch.float32, device=self.device)
+            self.loss_state_host[k] = v
 
     # ------------------------------------------------------------------
     # weights
@@ -336,6 +418,7 @@ class TorchPolicy(Policy):
         state = {
             "weights": self.get_weights(),
             "opt_state": opt_state,
+            "loss_state": dict(self.loss_state_host),
             "global_timestep": self.global_timestep,
         }
         if ef_state is not None:
@@ -352,9 +435,55 @@ class TorchPolicy(Policy):
                     and self.ef_state is not None:
                 self.ef_state.copy_(torch.as_tensor(state["ef_state"]))
         self.global_timestep = state.get("global_timestep", 0)
+        self.update_loss_state(**state.get("loss_state", {}))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.model.parameters())
+
+
+def epoch_permutation(generator: torch.Generator, num_seq: int,
+                      device: torch.device) -> torch.Tensor:
+    """One SGD epoch's order of the `num_seq` sequences: a uniform
+    permutation (int64 [num_seq]) drawn on `device` from `generator`."""
+    return torch.randperm(num_seq, generator=generator, device=device)
+
+
+def _tile_minibatches(batch, minibatch_size: int, seq_len: int):
+    """The rows `sgd_enqueue` trains on: (batch cut to whole minibatches,
+    number of minibatches). Checks of `jax_policy.py:510-536`."""
+    n = batch.count
+    if seq_len > 1 and minibatch_size % seq_len:
+        raise ValueError(
+            f"sgd minibatch_size {minibatch_size} must be a multiple of "
+            f"sequence length {seq_len}")
+    num_mb = max(1, n // minibatch_size)
+    usable = num_mb * minibatch_size
+    if usable > n:
+        raise ValueError(f"sgd minibatch_size {minibatch_size} is larger "
+                         f"than the batch ({n} rows)")
+    if sb.BOOTSTRAP_OBS in batch:
+        boot = batch[sb.BOOTSTRAP_OBS]
+        if seq_len <= 1 or len(boot) * seq_len != n:
+            raise ValueError(
+                f"BOOTSTRAP_OBS has {len(boot)} fragments but the batch "
+                f"has {n} rows at seq_len={seq_len}; packed fragment "
+                "batches must run with seq_len == rollout_fragment_length")
+        if usable != n:
+            # Cut at fragment granularity and keep the matching
+            # bootstrap rows (slice() drops the column).
+            sliced = batch.slice(0, usable)
+            sliced[sb.BOOTSTRAP_OBS] = boot[:usable // seq_len]
+            batch = sliced
+    elif usable != n:
+        batch = batch.slice(0, usable)
+    return batch, num_mb
+
+
+def read_stats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Device stats -> Python floats in one device->host copy."""
+    values = torch.stack([v.detach().float().reshape(())
+                          for v in stats.values()]).tolist()
+    return dict(zip(stats.keys(), values))
 
 
 def _to_host(tree):

@@ -2,7 +2,8 @@
 
 Counterpart of `ray_tpu/rllib/policy/jax_policy_template.py`
 (`build_jax_policy`; parity: `rllib/policy/tf_policy_template.py:13`):
-a policy class from a loss function and its default config. The other
+a policy class from a loss function and its default config (whose
+`loss_state` entry seeds `TorchPolicy.loss_state`). The other
 hooks of `build_jax_policy` (postprocess, extra action outputs, custom
 models/optimizers, mixins) come with the algorithms that use them.
 """

@@ -60,6 +60,12 @@ class SampleBatch(dict):
                 return len(v)
         return 0
 
+    def slice(self, start: int, end: int) -> "SampleBatch":
+        """Rows [start, end). Fragment-indexed columns (BOOTSTRAP_OBS)
+        are dropped: they no longer align once rows are cut."""
+        return SampleBatch({k: v[start:end] for k, v in self.items()
+                            if k not in _NON_ROW_COLUMNS})
+
     @staticmethod
     def concat_samples(batches: List["SampleBatch"]) -> "SampleBatch":
         if len(batches) == 1:

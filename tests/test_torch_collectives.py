@@ -184,6 +184,29 @@ def test_launch_reraises_a_rank_failure_and_kills_the_rest():
     assert time.monotonic() - t0 < 100
 
 
+def test_launch_reads_a_result_written_just_before_exit(monkeypatch):
+    """A rank that writes a small result and exits at once while the
+    launcher's wait is timing out is a finished rank, not a lost one:
+    the queue is read before any rank is called lost. The first wait of
+    each launch here returns nothing until a result has landed and its
+    rank has exited (`LateResults`), three launches in a row."""
+    import multiprocessing as mp
+    real_get_context = mp.get_context
+
+    class Context:
+        def __init__(self, method):
+            self._ctx = real_get_context(method)
+            self.Process = self._ctx.Process
+
+        def Queue(self):
+            return torch_dp_ranks.LateResults(self._ctx)
+
+    monkeypatch.setattr(mp, "get_context", Context)
+    for _ in range(3):
+        assert launch(torch_dp_ranks.quick_rank, 2, "gloo",
+                      timeout=120) == [0, 1]
+
+
 def test_pad_to_multiple():
     from ray_tpu_torch.parallel.mesh import pad_to_multiple
     assert [pad_to_multiple(n, 4) for n in (1, 4, 5, 8)] == [4, 4, 8, 8]

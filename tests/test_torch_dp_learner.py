@@ -112,6 +112,7 @@ def jax_side():
                 policy.loss_state, policy._ef_state)
         arm["grads"] = _state_dict(grads)
         arm["stats"] = policy.learn_on_batch(JaxSampleBatch(cols))
+        arm["global_timestep"] = policy.global_timestep
         arm["weights"] = _state_dict(policy.get_weights())
         out[(grad_clip, codec)] = arm
     return out
@@ -162,6 +163,16 @@ def test_fp32_update_matches_jax_mesh(jax_side, port_side, grad_clip):
         assert (np.abs(after - theirs["weights"][k]) <= bound).all(), k
         np.testing.assert_allclose(np.abs(after - w0[k]).max(), lr,
                                    rtol=1e-2)
+
+
+@pytest.mark.parametrize("codec", ["fp32", "q8"])
+def test_global_timestep_counts_the_world(jax_side, port_side, codec):
+    """Each rank learns on 1/D of the rows, and counts the whole world's,
+    as the JAX learner, one program over the mesh, counts the batch."""
+    want = jax_side[(40.0, "fp32")]["global_timestep"]
+    assert want == FRAGMENTS * T
+    for rank in port_side:
+        assert rank[(40.0, codec)]["global_timestep"] == want
 
 
 @pytest.mark.parametrize("grad_clip", [40.0, 0.01])

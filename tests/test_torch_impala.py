@@ -250,7 +250,11 @@ def test_validate_config():
     with pytest.raises(ValueError, match="multiple"):
         IMPALATrainer(config=_cartpole_config(
             rollout_fragment_length=30, train_batch_size=100))
-    for over in ({"num_workers": 2}, {"sgd_minibatch_size": 40},
+    # Minibatches are whole fragments (the reference's check).
+    with pytest.raises(ValueError, match="sgd_minibatch_size must be a "
+                                         "multiple"):
+        IMPALATrainer(config=_cartpole_config(sgd_minibatch_size=30))
+    for over in ({"num_workers": 2},
                  # Inline actors are ported (Sebulba device rollouts);
                  # their host-sampler variant is not yet.
                  {"num_inline_actors": 1, "device_rollouts": False}):

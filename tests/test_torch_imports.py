@@ -30,7 +30,11 @@ import ray_tpu_torch.parallel.collectives
 import ray_tpu_torch.parallel.distributed
 import ray_tpu_torch.parallel.mesh
 import ray_tpu_torch.parallel.q8_check
+import ray_tpu_torch.rllib.agents.ppo
+import ray_tpu_torch.rllib.optimizers.sync_samples_optimizer
 from ray_tpu_torch.rllib.env import make_batched_env
+from ray_tpu_torch.rllib.env.registry import make_env
+make_env("Pendulum-v0").reset()
 make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
 env = ray_tpu_torch.rllib.env.device_env.DeviceSyntheticAtari()
 env.reset(2, seed=0, device="cpu")
@@ -65,6 +69,9 @@ def test_cuda_without_a_card_raises(no_card):
     # The trainer's default device is "cuda": construction raises.
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IMPALATrainer(config={"env": "CartPole-v0"})
+    from ray_tpu_torch.rllib.agents.ppo import PPOTrainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PPOTrainer(config={"env": "Pendulum-v0"})
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")

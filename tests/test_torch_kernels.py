@@ -92,9 +92,9 @@ def test_vtrace_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-# (4096, 6) and (32, 2): the Anakin paths' shapes.
+# (4096, 6) and (32, 2): the Anakin paths' shapes; (16, 6): PPO Atari's.
 @pytest.mark.parametrize("B,A", [(32, 6), (1024, 18), (5, 100), (3, 1),
-                                 (4096, 6), (32, 2)])
+                                 (4096, 6), (32, 2), (16, 6)])
 @pytest.mark.parametrize("explore", [True, False])
 def test_categorical_kernel_matches_plain(cuda, B, A, explore):
     gen = torch.Generator(device=cuda).manual_seed(B * A)
@@ -171,6 +171,96 @@ def test_policy_on_the_card_launches_both_kernels(cuda):
         np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     assert next(card.model.parameters()).device.type == "cuda"
+
+
+# K7 tolerance, stated by the kernel's contract: 1e-6 absolute + 1e-6
+# relative on actions and logp (exp may differ from PyTorch's by an ulp;
+# every other step is the plain version's, in its order).
+GAUSSIAN_TOL = 1e-6
+
+
+@pytest.mark.gpu
+# (8, 1): Pendulum's 8 envs; (4096, 17): a MuJoCo-sized box; (5, 40): d
+# over a warp's 32 lanes; (3, 2): Pendulum-like at a ragged B.
+@pytest.mark.parametrize("B,d", [(8, 1), (4096, 17), (5, 40), (3, 2)])
+@pytest.mark.parametrize("explore", [True, False])
+def test_diag_gaussian_kernel_matches_plain(cuda, B, d, explore):
+    gen = torch.Generator(device=cuda).manual_seed(B * d)
+    mean = torch.randn(B, d, generator=gen, device=cuda) * 2.0
+    log_std = torch.rand(B, d, generator=gen, device=cuda) * 3.0 - 2.0
+    inputs = torch.cat([mean, log_std], dim=1).contiguous()
+    z = torch.randn(B, d, generator=gen, device=cuda) if explore else None
+    before = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    actions, logp = distributions.gaussian_sample_logp(inputs, z, explore)
+    torch.cuda.synchronize()
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == before + 1
+    want_actions, want_logp = distributions._gaussian_sample_logp_plain(
+        inputs, z, explore)
+    assert actions.dtype == torch.float32 and actions.shape == (B, d)
+    torch.testing.assert_close(actions, want_actions, rtol=GAUSSIAN_TOL,
+                               atol=GAUSSIAN_TOL)
+    torch.testing.assert_close(logp, want_logp, rtol=GAUSSIAN_TOL,
+                               atol=GAUSSIAN_TOL)
+    if not explore:
+        assert torch.equal(actions, mean)
+
+
+@pytest.mark.gpu
+def test_diag_gaussian_kernel_rejects_what_it_cannot_take(cuda):
+    inputs = torch.zeros(4, 6, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        distributions._gaussian_sample_logp_cuda(inputs.half(), None, False)
+    with pytest.raises(ValueError, match="2d"):
+        distributions._gaussian_sample_logp_cuda(
+            torch.zeros(4, 5, device=cuda), None, False)
+    with pytest.raises(ValueError, match="normals"):
+        distributions._gaussian_sample_logp_cuda(
+            inputs, torch.zeros(4, 2, device=cuda), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        distributions._gaussian_sample_logp_cuda(
+            torch.zeros(6, 4, device=cuda).t(), None, False)
+
+
+@pytest.mark.gpu
+def test_ppo_policy_on_the_card_launches_k7_and_matches_the_cpu(cuda):
+    """One Pendulum env step launches K7 once; one sgd_learn on the card
+    (f32, TF32 off) equals the same phase on the CPU from the same
+    weights, batch and permutations (1e-4 on the stats)."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.ppo import PPOTorchPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box
+    from ray_tpu_torch.rllib.policy import torch_policy
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    cfg = {"model": {"fcnet_hiddens": [64, 64], "free_log_std": True},
+           "seed": 0, "lr": 1e-3}
+    obs_space, act_space = Box(-8.0, 8.0, (3,)), Box(-2.0, 2.0, (1,))
+    card = PPOTorchPolicy(obs_space, act_space, dict(cfg, device="cuda"))
+    host = PPOTorchPolicy(obs_space, act_space, dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    n = 256
+    rng = np.random.default_rng(0)
+    obs = rng.standard_normal((n, 3)).astype(np.float32)
+    k7 = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    actions, _, extra = card.compute_actions(obs)
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == k7 + 1
+    assert actions.shape == (n, 1) and actions.dtype == np.float32
+    batch = {sb.OBS: obs, sb.ACTIONS: actions, **extra,
+             sb.ADVANTAGES: rng.standard_normal(n).astype(np.float32),
+             sb.VALUE_TARGETS: rng.standard_normal(n).astype(np.float32)}
+    perms = [torch.from_numpy(rng.permutation(n)) for _ in range(4)]
+    out = {}
+    for name, policy in (("cuda", card), ("cpu", host)):
+        queue = list(perms)
+        real = torch_policy.epoch_permutation
+        torch_policy.epoch_permutation = \
+            lambda g, m, device: queue.pop(0).to(device)
+        try:
+            out[name] = policy.sgd_learn(SampleBatch(batch), 4, 64)
+        finally:
+            torch_policy.epoch_permutation = real
+    for k, v in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
 
 
 def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
@@ -547,7 +637,8 @@ def test_q8_kernels_reject_what_they_cannot_take(cuda):
 
 
 def test_new_kernels_have_sources_and_entry_points():
-    for kernel in (distributions.CATEGORICAL_K_KERNEL,
+    for kernel in (distributions.DIAG_GAUSSIAN_KERNEL,
+                   distributions.CATEGORICAL_K_KERNEL,
                    device_sampler.OBS_APPLY_KERNEL,
                    device_env.SYNTHETIC_ATARI_KERNEL,
                    device_env.CARTPOLE_KERNEL,
@@ -607,9 +698,11 @@ def test_build_all_runs_one_nvcc_per_source(monkeypatch):
          distributions.CATEGORICAL_K_KERNEL,
          device_sampler.OBS_APPLY_KERNEL, device_env.SYNTHETIC_ATARI_KERNEL,
          device_env.CARTPOLE_KERNEL, collectives.Q8_ENCODE_KERNEL,
-         collectives.Q8_GATHER_SUM_KERNEL])
+         collectives.Q8_GATHER_SUM_KERNEL,
+         distributions.DIAG_GAUSSIAN_KERNEL])
     assert sorted(started) == ["categorical.cu", "device_env.cu",
-                               "obs_apply.cu", "q8.cu", "vtrace.cu"]
+                               "diag_gaussian.cu", "obs_apply.cu", "q8.cu",
+                               "vtrace.cu"]
     assert sorted(reports) == sorted(started)
 
 

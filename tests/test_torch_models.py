@@ -140,23 +140,30 @@ def test_compute_dtype_resolution(monkeypatch):
         catalog.resolve_compute_dtype("fp8")
 
 
-@pytest.mark.parametrize("kind", ["vision", "fc"])
+@pytest.mark.parametrize("kind", ["vision", "fc", "fc_free_log_std"])
 def test_flax_leaves_invert_the_converter(kind):
     """The way back for gradients: `flax_leaves` of a converted
     state_dict gives the flax leaves themselves, in jax's tree-flatten
     order and each in its own element order; the exchange's pack plan
-    puts them, so flattened, in block-aligned slots and back."""
+    puts them, so flattened, in block-aligned slots and back. With
+    `free_log_std` the bare `log_std` leaf (set away from its zero init
+    here) is one of them."""
     if kind == "vision":
         _, params, model, _ = _vision_pair("f32")
     else:
         space = (8,)
+        free = kind == "fc_free_log_std"
+        mcfg = {"fcnet_hiddens": [16, 16], "free_log_std": free}
+        outputs = 6 if free else 3
         jax_model = jax_catalog.get_model(
-            JaxBox(-1.0, 1.0, space, np.float32), 3,
-            {"fcnet_hiddens": [16, 16]})
+            JaxBox(-1.0, 1.0, space, np.float32), outputs, mcfg)
         params = jax_model.init(jax.random.PRNGKey(1),
                                 np.zeros((1,) + space, np.float32))
-        model = catalog.get_model(Box(-1.0, 1.0, space), 3,
-                                  {"fcnet_hiddens": [16, 16]})
+        if free:
+            params = jax.tree.map(np.asarray, params)
+            params["params"]["log_std"] = np.array([0.5, -1.0, 2.0],
+                                                   np.float32)
+        model = catalog.get_model(Box(-1.0, 1.0, space), outputs, mcfg)
         model.load_state_dict(flax_to_state_dict(
             jax.tree.map(np.asarray, params)))
     want = [np.asarray(x) for x in jax.tree_util.tree_leaves(params)]

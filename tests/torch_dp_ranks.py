@@ -101,6 +101,7 @@ def dp_update_rank(rank, world_size, weights, cols, T, arms):
         fresh = _vtrace_policy(group, weights, frame, num_actions, T,
                                grad_clip, codec)
         arm["stats"] = fresh.learn_on_batch(local)
+        arm["global_timestep"] = fresh.global_timestep
         arm["weights"] = fresh.get_weights()
         arm["payload"] = fresh.allreduce_payload
         arm["wire_bytes"] = fresh.allreduce_wire
@@ -193,3 +194,44 @@ def sleeping_rank(rank, seconds):
     import time
     time.sleep(seconds)
     return rank
+
+
+def quick_rank(rank):
+    """Returns at once: a small result, then the rank exits."""
+    return rank
+
+
+class LateResults:
+    """A result queue whose first `get` returns nothing until a result
+    has landed and its rank has had time to exit: the race in which a
+    launcher's wait times out just before a rank writes its result and
+    exits. The ranks put into it as into any multiprocessing queue."""
+
+    def __init__(self, ctx, settle_s=2.0):
+        self._queue = ctx.Queue()
+        self._settle_s = settle_s
+        self._late = True
+
+    def put(self, payload):
+        self._queue.put(payload)
+
+    def get(self, timeout=None):
+        import queue
+        import time
+        if self._late:
+            self._late = False
+            while self._queue.empty():
+                time.sleep(0.01)
+            time.sleep(self._settle_s)
+            raise queue.Empty
+        return self._queue.get(timeout=timeout)
+
+    def get_nowait(self):
+        return self._queue.get_nowait()
+
+    def close(self):
+        self._queue.close()
+
+    def __getstate__(self):
+        return {"_queue": self._queue, "_settle_s": self._settle_s,
+                "_late": False}
