@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py dp    # phase 6 alone, on a machine of 2+ cards
+    python3 chip_smoke.py dqn   # phase 9 alone (K8 built alone)
 
-Eight phases, any failure exits non-zero (no phase is caught, nothing
+Nine phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -73,6 +74,19 @@ falls back to the CPU):
    network and `free_log_std`, PPO's default config (8 envs x 200-step
    fragments, 4000-row train batches, 30 epochs of 128-row minibatches),
    3 iterations: the DiagGaussian kernel (K7) once per env step.
+9. DQN on Atari pixels: `DQNTrainer` with `dqn.py`'s DEFAULT_CONFIG on
+   SyntheticAtari-v0 (one env; the QNetwork's bf16 conv trunk into a
+   [256] dueling head, double Q, prioritized replay of 50,000, 1000
+   learning-start steps, 32-row batches, 4-step fragments, the target
+   synced every 500 trained steps), 3 iterations (1,000, 1,000 and a
+   profiled 200 env steps): with every kernel's count set to 0 before, the
+   epsilon-greedy kernel (K8) once per env step and no other kernel,
+   at least one target sync, epsilon on its schedule. Then one
+   `learn_with_td` of the trained online and target weights on the
+   last replay batch on the card against the CPU: at the path's bf16
+   trunk (`DQN_BF16_TOL`) and with an f32 trunk, TF32 off (1e-4). Then
+   a DQN CartPole leg at `tuned_examples/cartpole-dqn.yaml`'s settings,
+   3 iterations, for the MLP path (K8 once per env step).
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
@@ -80,9 +94,12 @@ its thresholds) at the Anakin shapes and at N=37, and the q8 exchange's
 encode (K6a) and gather-sum (K6b) bit for bit against theirs: K6a at
 the Nature CNN's packed gradient, the CartPole FC net's and 64M
 elements, on live blocks and the codec's edge cases; K6b at D=2 and 8,
-with and without the division by D; and K7, the DiagGaussian
+with and without the division by D; K7, the DiagGaussian
 sampling tail, at Pendulum's shape (8 x 1, timed) and at 4096 x 17,
-exploring and not (1e-6 + 1e-6 relative; the mean itself when not).
+exploring and not (1e-6 + 1e-6 relative; the mean itself when not);
+and K8, the epsilon-greedy tail, at the DQN Atari path's 1 x 6 (timed),
+the CartPole leg's 1 x 2, 32 x 18 and 4096 x 18, each at epsilon 0,
+0.3 and 1, with rows of ties and of NaN (the actions equal).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -214,6 +231,43 @@ PPO_PENDULUM_CONFIG = {
     "seed": 0,
     "device": "cuda",
 }
+
+# Phase 9: DQN's DEFAULT_CONFIG (dqn.py: double Q, the dueling [256]
+# head on the conv trunk, prioritized replay of 50,000, learning_starts
+# 1000, 32-row batches, 4-step fragments, target sync every 500 trained
+# steps, 1,000 steps per iteration) on SyntheticAtari-v0, which stands
+# in for the ROM the repository lacks. One env: 6 actions, B=1.
+DQN_ATARI_CONFIG = {"env": "SyntheticAtari-v0", "seed": 0, "device": "cuda"}
+DQN_ITERS = 3  # 0 fills the replay buffer, 1 is timed, 2 is profiled
+# The profiled iteration's window, in env steps: the profiler's own
+# processing of a whole 1,000-step iteration's events took 54 s on an
+# H100's host.
+DQN_PROFILED_STEPS = 200
+# Its CartPole leg: ray_tpu/rllib/tuned_examples/cartpole-dqn.yaml.
+DQN_CARTPOLE_CONFIG = {
+    "env": "CartPole-v0",
+    "num_workers": 0,
+    "learning_starts": 500,
+    "buffer_size": 20000,
+    "train_batch_size": 64,
+    "rollout_fragment_length": 4,
+    "exploration_timesteps": 4000,
+    "exploration_final_eps": 0.02,
+    "target_network_update_freq": 300,
+    "timesteps_per_iteration": 500,
+    "lr": 1e-3,
+    "hiddens": [64],
+    "model": {"fcnet_hiddens": [64]},
+    "seed": 0,
+    "device": "cuda",
+}
+# |card - CPU| <= TOL * (1 + |CPU|) on one learn_with_td of the trained
+# weights on the last replay batch, the path's own bf16 conv trunk. In
+# two H100 runs the |td| differed by up to 1.28e-2 and 1.58e-2 of
+# (1 + |CPU|) and the stats by up to 8.3e-4 and 1.07e-2 (`grad_gnorm`):
+# bf16 rounds the Q-values, and a TD error is a difference of two.
+# Three times the largest reading.
+DQN_BF16_TOL = 5e-2
 
 # Phase 6: phase 3's configuration on a world of 2 ranks (16 envs each).
 DP_RANKS = 2
@@ -603,6 +657,52 @@ def check_diag_gaussian(B, d, timed):
             "diag_gaussian_sample_kernel")
     log(f"  diag_gaussian B={B} d={d}: max_abs_err={err:.3e} (tol "
         f"{GAUSSIAN_TOL} + {GAUSSIAN_TOL}*|plain|), mean when not exploring"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+    return row
+
+
+def eps_greedy_bytes_ops(B, A):
+    """K8's bytes (Q-values and uniforms read once, the int64 actions
+    written once) and f32 operations (one comparison per Q-value; the
+    multiply, floor and two comparisons of the swap per row)."""
+    return 4 * B * A + 8 * B + 8 * B, B * A + 4 * B
+
+
+def check_eps_greedy(B, A, timed):
+    """K8 against its plain version at epsilon 0, 0.3 and 1: the
+    actions must be equal. From B=4 on, row 0 is all ties, row 1 holds
+    a NaN, row 2 is all NaN and row 3 ties at its maximum."""
+    import torch
+    from ray_tpu_torch.models import eps_greedy as k8
+    g = torch.Generator(device="cuda").manual_seed(B * A + 8)
+    q = torch.randn(B, A, generator=g, device="cuda")
+    if B >= 4:
+        q[0] = 0.5
+        q[1, A // 2] = float("nan")
+        q[2] = float("nan")
+        q[3, 1] = q[3, A - 1] = 9.0
+    u = torch.rand(B, 2, generator=g, device="cuda")
+    swapped = 0
+    for eps in (0.0, 0.3, 1.0):
+        got = k8.eps_greedy(q, u, eps)
+        want = k8._eps_greedy_plain(q, u, eps)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int64 or not torch.equal(got, want):
+            raise AssertionError(
+                f"eps_greedy kernel picks other actions than plain at "
+                f"B={B} A={A} eps={eps}: "
+                f"{int((got != want).sum())} rows differ")
+        swapped += int((u[:, 0] < eps).sum())
+    row = {"B": B, "A": A, "max_abs_err": 0.0}
+    if timed:
+        row["ms"] = time_call(lambda: k8.eps_greedy(q, u, 0.3), reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: k8._eps_greedy_plain(q, u, 0.3), reps=500)
+        row["device_ms"] = device_ms(lambda: k8.eps_greedy(q, u, 0.3),
+                                     "eps_greedy_kernel")
+    log(f"  eps_greedy B={B} A={A}: actions equal at eps 0, 0.3 and 1 "
+        f"({swapped} random swaps)"
         + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
            f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
     return row
@@ -1714,6 +1814,242 @@ def check_ppo_against_cpu(trainer, last_batch, rows=1024, minibatch=512,
                       f"f32, TF32 off")
 
 
+# ---------------------------------------------------------------------
+# phase 9: DQN
+# ---------------------------------------------------------------------
+def port_kernels():
+    """Every hand-written kernel of the port."""
+    from ray_tpu_torch.models import distributions, eps_greedy
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.rllib.agents.impala import vtrace
+    from ray_tpu_torch.rllib.env import device_env
+    from ray_tpu_torch.rllib.evaluation import device_sampler
+    return [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
+            distributions.CATEGORICAL_K_KERNEL,
+            device_sampler.OBS_APPLY_KERNEL,
+            device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
+            collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL,
+            distributions.DIAG_GAUSSIAN_KERNEL,
+            eps_greedy.EPS_GREEDY_KERNEL]
+
+
+def run_dqn(name, config, iters, profile_last):
+    """`iters` iterations of `DQNTrainer(config)` (the last one, cut to
+    `DQN_PROFILED_STEPS` env steps, profiled when `profile_last`), with
+    every kernel's count set to 0 just
+    before: K8 must launch once per env step and no other kernel at
+    all; the target network must have synced; epsilon must sit on its
+    schedule at the sampled steps. Returns (trainer, K8 launches, the
+    last replay batch the learner got)."""
+    import torch
+    from ray_tpu_torch.models import eps_greedy
+    from ray_tpu_torch.rllib.agents.dqn import DQNTrainer
+    from ray_tpu_torch.rllib.utils.schedules import LinearSchedule
+
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = DQNTrainer(config=dict(config))
+    policy = trainer.get_policy()
+    cfg = trainer.config
+    trunk = policy.model.compute_dtype if policy.model.image else "none"
+    log(f"  {name}: trainer built in {time.perf_counter() - t0:.2f} s: "
+        f"{policy.num_params()} params (online; the target as many), "
+        f"conv trunk {trunk}, device {policy.device}")
+    # An update's host time, split: the replay sample, the policy's
+    # learn_with_td (upload, update, the one read), and the rest (the
+    # priority write-back).
+    last_batch = []
+    split = {"replay_sample": 0.0, "learn_with_td": 0.0}
+    real_learn = policy.learn_with_td
+    buffer = trainer.optimizer.replay_buffer
+    real_sample = buffer.sample
+
+    def learn_with_td(batch):
+        last_batch[:] = [batch]
+        t = time.perf_counter()
+        out = real_learn(batch)
+        split["learn_with_td"] += time.perf_counter() - t
+        return out
+
+    def sample(*args, **kwargs):
+        t = time.perf_counter()
+        out = real_sample(*args, **kwargs)
+        split["replay_sample"] += time.perf_counter() - t
+        return out
+
+    policy.learn_with_td = learn_with_td
+    buffer.sample = sample
+    timers = trainer.optimizer.timers
+    kernels = port_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    iters_out, prof = [], None
+    for i in range(iters):
+        profiled = profile_last and i == iters - 1
+        sample0, learn0 = timers["sample"].total, timers["learn"].total
+        split0 = dict(split)
+        trained0 = trainer.optimizer.num_steps_trained
+        t0 = time.perf_counter()
+        if profiled:
+            trainer.config["timesteps_per_iteration"] = DQN_PROFILED_STEPS
+            result, prof = profile_iteration(trainer)
+        else:
+            result = trainer.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = result["timesteps_this_iter"]
+        updates = (result["num_steps_trained"] - trained0) \
+            // cfg["train_batch_size"]
+        learn_s = timers["learn"].total - learn0
+        learner = result["info"]["learner"]
+        parts = {k: 1e3 * (split[k] - split0[k]) / updates if updates
+                 else None for k in split}
+        if updates:
+            parts["write_back"] = 1e3 * learn_s / updates \
+                - parts["replay_sample"] - parts["learn_with_td"]
+        row = {"s": dt, "steps": steps, "updates": updates,
+               "sample_s": timers["sample"].total - sample0,
+               "learn_s": learn_s,
+               "update_ms": 1e3 * learn_s / updates if updates else None,
+               "update_parts_ms": parts,
+               "epsilon": result["info"]["exploration_epsilon"],
+               "target_updates": result["info"]["num_target_updates"],
+               "episode_reward_mean": result["episode_reward_mean"],
+               "learner": learner}
+        log(f"  {name} iter {i}{' (profiled)' if profiled else ''}: "
+            f"{dt:.3f} s, {steps} env steps, {steps / dt:.1f} env steps/s,"
+            f" {updates} updates ({row['update_ms']} ms each with the "
+            f"replay sample and the priority write-back: "
+            f"{json.dumps(parts)}), sample "
+            f"{row['sample_s']:.3f} s, eps {row['epsilon']:.4f}, target "
+            f"syncs {row['target_updates']}, loss "
+            f"{learner.get('loss', float('nan')):.5f}, reward mean "
+            f"{row['episode_reward_mean']}")
+        if not all(math.isfinite(v) for v in learner.values()):
+            raise AssertionError(f"{name}: non-finite stats at iter {i}")
+        iters_out.append(row)
+    launches = {k.name: k.launches for k in kernels}
+    sampled = result["num_steps_sampled"]
+    env_steps = sampled // cfg["num_envs_per_worker"]
+    if launches["eps_greedy"] != env_steps or env_steps <= 0:
+        raise AssertionError(
+            f"{name}: eps_greedy launched {launches['eps_greedy']} times "
+            f"for {env_steps} env steps")
+    others = {k: v for k, v in launches.items() if k != "eps_greedy" and v}
+    if others:
+        raise AssertionError(f"{name}: kernels of other paths launched: "
+                             f"{others}")
+    if result["info"]["num_target_updates"] < 1:
+        raise AssertionError(f"{name}: the target network never synced")
+    want_eps = LinearSchedule(
+        cfg["exploration_timesteps"], cfg["exploration_final_eps"],
+        cfg["exploration_initial_eps"]).value(sampled)
+    if abs(policy.cur_epsilon - want_eps) > 1e-12:
+        raise AssertionError(f"{name}: epsilon {policy.cur_epsilon} off "
+                             f"its schedule ({want_eps} at {sampled})")
+    steady = iters_out[1]
+    summary = {
+        "iterations": iters,
+        "iter_s": [r["s"] for r in iters_out],
+        "env_steps_per_s_steady": steady["steps"] / steady["s"],
+        "sample_s_steady": steady["sample_s"],
+        "learn_s_steady": steady["learn_s"],
+        "update_ms_steady": steady["update_ms"],
+        "update_parts_ms_steady": steady["update_parts_ms"],
+        "updates_steady": steady["updates"],
+        "num_steps_sampled": sampled,
+        "num_steps_trained": result["num_steps_trained"],
+        "num_target_updates": result["info"]["num_target_updates"],
+        "epsilon": policy.cur_epsilon,
+        "replay_buffer": result.get("replay_buffer"),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_before_bytes": held_before,
+        "launches": launches,
+        "profiled_iteration": prof,
+    }
+    log(f"  {name} summary: {json.dumps(summary)}")
+    return trainer, launches["eps_greedy"], last_batch[0]
+
+
+def dqn_update(policy, config, batch, devices=("cuda", "cpu")):
+    """One `learn_with_td` of a `DQNPolicy` built from `config` on each
+    of `devices`, from `policy`'s online and target weights, on
+    `batch`. -> {device: (stats, |td|)}."""
+    from ray_tpu_torch.rllib.agents.dqn import DQNPolicy
+    weights = policy.get_weights()
+    out = {}
+    for device in devices:
+        pol = DQNPolicy(policy.observation_space, policy.action_space,
+                        dict(config, device=device))
+        pol.set_weights(weights)
+        out[device] = pol.learn_with_td(batch)
+    return out
+
+
+def check_dqn_against_cpu(trainer, batch):
+    """One `learn_with_td` of the trained online and target weights on
+    the last replay batch, on the card against the CPU:
+    - at the path's own bf16 conv trunk: every stat and |td| within
+      `DQN_BF16_TOL` * (1 + |CPU|);
+    - with an f32 trunk and TF32 off: within 1e-4 * (1 + |CPU|)."""
+    import numpy as np
+    import torch
+    policy = trainer.get_policy()
+    cfg = {k: v for k, v in policy.config.items() if k != "device"}
+    f32_cfg = dict(cfg, model=dict(cfg.get("model") or {},
+                                   compute_dtype="f32"))
+    checks = [("the path's bf16 trunk", cfg, DQN_BF16_TOL)]
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    failures = []
+    for what, config, tol in checks + [("f32 trunk, TF32 off", f32_cfg,
+                                        1e-4)]:
+        if config is f32_cfg:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        out = dqn_update(policy, config, batch)
+        (card, card_td), (cpu, cpu_td) = out["cuda"], out["cpu"]
+        pairs = {k: [card[k], v] for k, v in cpu.items()}
+        td_err = np.abs(card_td - cpu_td) / (1.0 + np.abs(cpu_td))
+        rel = {k: abs(a - b) / (1.0 + abs(b)) for k, (a, b) in pairs.items()}
+        log(f"  card vs CPU learn_with_td ({what}; {batch.count} rows; "
+            f"tol {tol} * (1 + |CPU|)): {json.dumps(pairs)}; |td| "
+            f"largest scaled difference {float(td_err.max()):.3e}; stats' "
+            f"scaled differences {json.dumps(rel)}")
+        for k, r in rel.items():
+            if not r <= tol:
+                failures.append(f"{what}: {k} {pairs[k]}")
+        if not float(td_err.max()) <= tol:
+            failures.append(f"{what}: |td| {float(td_err.max())}")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+    if failures:
+        raise AssertionError("card learn_with_td disagrees with the CPU: "
+                             + "; ".join(failures))
+
+
+def run_phase9():
+    """DQN on Atari pixels, its card-vs-CPU update, and the CartPole
+    leg. -> K8's launches on both."""
+    import torch
+    log("phase 9: DQNTrainer at full width, Atari pixels (QNetwork, "
+        "prioritized replay, K8)")
+    # PyTorch's default (phase 7's check turned TF32 off for cuDNN).
+    torch.backends.cudnn.allow_tf32 = True
+    trainer, k8_launches, replay_batch = run_dqn(
+        "dqn_atari", DQN_ATARI_CONFIG, DQN_ITERS, profile_last=True)
+    check_dqn_against_cpu(trainer, replay_batch)
+    trainer.stop()
+    del trainer
+    gc.collect()
+    trainer, cartpole_k8, _ = run_dqn(
+        "dqn_cartpole", DQN_CARTPOLE_CONFIG, 3, profile_last=False)
+    trainer.stop()
+    return k8_launches + cartpole_k8
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1725,9 +2061,7 @@ def main():
     from ray_tpu_torch._private import cuda_build
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import vtrace
-    from ray_tpu_torch.rllib.env import device_env
     from ray_tpu_torch.parallel import collectives, q8_check
-    from ray_tpu_torch.rllib.evaluation import device_sampler
 
     card = card_line()
     log(f"card: {card}")
@@ -1743,14 +2077,15 @@ def main():
         log("phase 6 alone: IMPALATrainer, data-parallel learner")
         log(json.dumps({"launches": run_dp()}))
         return 0
+    if sys.argv[1:] == ["dqn"]:
+        # Phase 9 alone: its host-bound rates without phases 1-8 before.
+        from ray_tpu_torch.models import eps_greedy
+        cuda_build.build_all([eps_greedy.EPS_GREEDY_KERNEL])
+        log(json.dumps({"eps_greedy_launches": run_phase9()}))
+        return 0
 
     log("phase 1: build")
-    kernels = [vtrace.VTRACE_KERNEL, distributions.CATEGORICAL_KERNEL,
-               distributions.CATEGORICAL_K_KERNEL,
-               device_sampler.OBS_APPLY_KERNEL,
-               device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
-               collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL,
-               distributions.DIAG_GAUSSIAN_KERNEL]
+    kernels = port_kernels()
     t0 = time.perf_counter()
     reports = cuda_build.build_all(kernels, verbose=True)
     log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
@@ -1844,6 +2179,17 @@ def main():
     log(f"  bound ms: diag_gaussian B={PPO_PENDULUM_ENVS} d=1 "
         f"{k7_bound[0]:.3e} ({k7_bound[1]})")
 
+    # K8 at the DQN Atari path's shape (one env, 6 actions; timed), at
+    # the CartPole leg's (one env, 2 actions), at 32 x 18 and at 4096 x
+    # 18 (the full Atari action set), each at epsilon 0, 0.3 and 1.
+    k8 = check_eps_greedy(1, NUM_ACTIONS, timed=True)
+    check_eps_greedy(1, 2, timed=False)
+    check_eps_greedy(32, 18, timed=False)
+    check_eps_greedy(4096, 18, timed=False)
+    k8_bound = bound_ms(*eps_greedy_bytes_ops(1, NUM_ACTIONS))
+    log(f"  bound ms: eps_greedy B=1 A={NUM_ACTIONS} {k8_bound[0]:.3e} "
+        f"({k8_bound[1]}, {eps_greedy_bytes_ops(1, NUM_ACTIONS)[0]} B)")
+
     log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
     check_update_against_cpu(weights)
@@ -1891,6 +2237,10 @@ def main():
         "ppo_pendulum", pendulum_config, distributions.DIAG_GAUSSIAN_KERNEL,
         PPO_PENDULUM_ENVS, fc_train_flops_per_row(fc))
     trainer.stop()
+    del trainer
+    gc.collect()
+
+    k8_launches = run_phase9()
 
     kernels_line = {"kernels": [
         {"name": "vtrace", "route": "cuda",
@@ -1962,6 +2312,13 @@ def main():
          "launches": k7_launches, "max_abs_err": k7["max_abs_err"],
          "ms": k7["ms"], "plain_ms": k7["plain_ms"],
          "bound_ms": k7_bound[0], "bound_by": k7_bound[1],
+         "library_ms": None},
+        {"name": "eps_greedy", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/eps_greedy.cu",
+         "replaces": "ray_tpu/rllib/agents/dqn/dqn_policy.py:161",
+         "launches": k8_launches, "max_abs_err": k8["max_abs_err"],
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
          "library_ms": None},
     ]}
     log(json.dumps(kernels_line))

@@ -9,11 +9,13 @@ numpy arrays, as `JaxPolicy.get_weights()` returns it) into a
 - biases, and bare parameter leaves (the FC network's `log_std` with
   `free_log_std`), unchanged.
 
-The one trap: the flax Vision trunk flattens its NHWC conv output in
-(H, W, C) order into the `fc` kernel, while the port computes NCHW and
-flattens in (C, H, W) order. The port keeps its own NCHW flatten and the
-conversion permutes the `fc` kernel's input rows from (H, W, C) to
-(C, H, W) instead (`tests/test_torch_models.py` proves it).
+The one trap: a flax conv trunk flattens its NHWC output in (H, W, C)
+order into the dense layer that reads it (the Vision network's `fc`,
+the Q network's `fc_0`, or a Q network's heads when it has no hidden
+layer), while the port computes NCHW and flattens in (C, H, W) order.
+The port keeps its own NCHW flatten and the conversion permutes that
+kernel's input rows from (H, W, C) to (C, H, W) instead
+(`tests/test_torch_models.py` and `tests/test_torch_dqn.py` prove it).
 
 The way back, for gradients: `flax_leaves` puts each port tensor's
 elements in its flax leaf's shape and element order, in flax's
@@ -37,11 +39,23 @@ def _layers(params: Mapping) -> Mapping:
     return params["params"] if "params" in params else params
 
 
-def _conv_out_shape(layers: Mapping, fc_in: int,
+def _conv_readers(layer_names) -> set:
+    """The dense layers that read the conv trunk's flattened output:
+    `fc` (VisionNetwork), else `fc_0` (QNetwork), else, for a QNetwork
+    with no hidden layer, its heads; none without convs."""
+    names = set(layer_names)
+    if not any(n.startswith("conv_") for n in names):
+        return set()
+    for first in ("fc", "fc_0"):
+        if first in names:
+            return {first}
+    return {n for n in names if not n.startswith("conv_")}
+
+
+def _conv_out_shape(channels: int, fc_in: int,
                     conv_out_hw: Optional[Tuple[int, int]]):
-    last_conv = max((k for k in layers if k.startswith("conv_")),
-                    key=lambda k: int(k.split("_")[1]))
-    channels = np.asarray(layers[last_conv]["kernel"]).shape[-1]
+    """(H, W, C) of a conv output of `channels` channels that a dense
+    layer reads as `fc_in` features (square by default)."""
     if conv_out_hw is None:
         side = math.isqrt(fc_in // channels)
         if side * side * channels != fc_in:
@@ -64,7 +78,11 @@ def flax_to_state_dict(params: Mapping,
     `conv_out_hw` is the Vision trunk's final (H, W); by default it is
     taken as square from the `fc` kernel's input size."""
     layers = _layers(params)
-    has_convs = any(k.startswith("conv_") for k in layers)
+    readers = _conv_readers(layers)
+    if readers:
+        last_conv = max((k for k in layers if k.startswith("conv_")),
+                        key=lambda k: int(k.split("_")[1]))
+        channels = np.asarray(layers[last_conv]["kernel"]).shape[-1]
     out = {}
     for name, leaf in layers.items():
         if not isinstance(leaf, Mapping):  # a bare parameter (log_std)
@@ -74,8 +92,8 @@ def flax_to_state_dict(params: Mapping,
         if kernel.ndim == 4:  # HWIO -> OIHW
             weight = kernel.transpose(3, 2, 0, 1)
         elif kernel.ndim == 2:
-            if has_convs and name == "fc":
-                h, w, c = _conv_out_shape(layers, kernel.shape[0],
+            if name in readers:
+                h, w, c = _conv_out_shape(channels, kernel.shape[0],
                                           conv_out_hw)
                 kernel = kernel.reshape(h, w, c, -1).transpose(
                     2, 0, 1, 3).reshape(h * w * c, -1)
@@ -91,25 +109,12 @@ def flax_to_state_dict(params: Mapping,
 # ---------------------------------------------------------------------
 # port -> flax element order (gradients, the exchange's packing)
 # ---------------------------------------------------------------------
-def _fc_hwc(state_dict: Mapping[str, torch.Tensor],
-            conv_out_hw: Optional[Tuple[int, int]]):
-    """(H, W, C) of the conv output the `fc` layer reads, or None for a
-    network without convs."""
+def _conv_channels(state_dict: Mapping[str, torch.Tensor]) -> int:
+    """Output channels of the last conv layer of a port state_dict."""
     convs = [k for k in state_dict
              if k.startswith("conv_") and k.endswith(".weight")]
-    if not convs:
-        return None
     last = max(convs, key=lambda k: int(k.split(".")[0].split("_")[1]))
-    channels = state_dict[last].shape[0]
-    fc_in = state_dict["fc.weight"].shape[1]
-    if conv_out_hw is None:
-        side = math.isqrt(fc_in // channels)
-        conv_out_hw = (side, side)
-    height, width = conv_out_hw
-    if height * width * channels != fc_in:
-        raise ValueError(f"conv_out_hw {conv_out_hw} x {channels} channels "
-                         f"!= fc input {fc_in}")
-    return height, width, channels
+    return state_dict[last].shape[0]
 
 
 def flax_leaves(state_dict: Mapping[str, torch.Tensor],
@@ -120,18 +125,20 @@ def flax_leaves(state_dict: Mapping[str, torch.Tensor],
     leaf's shape and element order)], in flax's tree-flatten order
     (None for a bare parameter such as `log_std`). The inverse of
     `flax_to_state_dict`'s layout map."""
-    fc_hwc = _fc_hwc(state_dict, conv_out_hw)
+    layers = sorted({k.split(".")[0] for k in state_dict})
+    readers = _conv_readers(layers)
     out = []
-    for layer in sorted({k.split(".")[0] for k in state_dict}):
+    for layer in layers:
         if layer in state_dict:  # a bare parameter, no sub-leaves
             out.append((layer, None, state_dict[layer]))
             continue
         weight = state_dict[f"{layer}.weight"]
         if weight.dim() == 4:  # OIHW -> HWIO
             kernel = weight.permute(2, 3, 1, 0)
-        elif weight.dim() == 2 and layer == "fc" and fc_hwc is not None:
+        elif weight.dim() == 2 and layer in readers:
             # [out, (C, H, W)] -> [(H, W, C), out]
-            h, w, c = fc_hwc
+            h, w, c = _conv_out_shape(_conv_channels(state_dict),
+                                      weight.shape[1], conv_out_hw)
             kernel = weight.reshape(weight.shape[0], c, h, w).permute(
                 2, 3, 1, 0).reshape(h * w * c, -1)
         elif weight.dim() == 2:

@@ -1,8 +1,8 @@
 """Policy/value networks as `nn.Module`s.
 
 Counterpart of `ray_tpu/models/networks.py` (`FullyConnectedNetwork`,
-`VisionNetwork`); the LSTM, Q and actor/critic networks wait for later
-slices. As there:
+`VisionNetwork`, `QNetwork`); the LSTM and actor/critic networks wait
+for later slices. As there:
 
 - every network returns `(dist_inputs, value)` from one forward pass;
 - parameters are float32 masters; the trunk computes in
@@ -15,9 +15,11 @@ slices. As there:
 
 Layer names match the flax modules' (`conv_0`, `fc`, `logits`, ...), so
 `models/convert.py` maps a flax params tree onto `state_dict()` keys
-one to one. The Vision trunk computes NCHW; its `fc` layer reads the
-conv output flattened in (C, H, W) order, and the converter permutes
-the flax `fc` kernel's rows from flax's (H, W, C) order to match.
+one to one. The conv trunk (shared by `VisionNetwork` and `QNetwork`)
+computes NCHW; the first dense layer after it (`fc`, or `QNetwork`'s
+`fc_0`) reads the conv output flattened in (C, H, W) order, and the
+converter permutes that flax kernel's rows from flax's (H, W, C) order
+to match.
 Initialization follows flax's defaults: LeCun-normal (truncated)
 kernels, zero biases, N(0, 0.01) logits kernels.
 """
@@ -126,6 +128,40 @@ class FullyConnectedNetwork(nn.Module):
         return logits, value[..., 0]
 
 
+def _add_convs(module: nn.Module, obs_shape: Sequence[int],
+               conv_filters: Sequence[Tuple[int, int, int]]) -> int:
+    """Add `conv_0`, `conv_1`, ... (VALID padding) for NHWC frames of
+    `obs_shape` to `module`, with `conv_names`, `strides` and
+    `conv_out_hw`; returns the flattened output's width."""
+    height, width, channels = obs_shape
+    module.conv_names = []
+    module.strides = []
+    for i, (out_ch, k, s) in enumerate(conv_filters):
+        module.add_module(f"conv_{i}", nn.Conv2d(channels, out_ch, k, s))
+        module.conv_names.append(f"conv_{i}")
+        module.strides.append(s)
+        channels = out_ch
+        height = (height - k) // s + 1  # padding="VALID"
+        width = (width - k) // s + 1
+    module.conv_out_hw = (height, width)
+    return channels * height * width
+
+
+def _conv_trunk(module: nn.Module, obs: torch.Tensor, cdt: torch.dtype,
+                activation) -> torch.Tensor:
+    """NHWC uint8 frames -> the conv stack's output in `cdt`, flattened
+    in (C, H, W) order."""
+    # NHWC uint8 -> NCHW compute dtype, normalized on the device. The
+    # divisor is a Python number: a 0-d tensor made on the card here
+    # would be a blocking host->device copy, a stream sync per forward.
+    x = obs.permute(0, 3, 1, 2).to(cdt) / 255.0
+    for name, stride in zip(module.conv_names, module.strides):
+        conv = getattr(module, name)
+        x = activation(F.conv2d(x, conv.weight.to(cdt), conv.bias.to(cdt),
+                                stride=stride))
+    return x.reshape(x.shape[0], -1)
+
+
 class VisionNetwork(nn.Module):
     """Nature-CNN for 84x84xC uint8 frames (NHWC at the input)."""
 
@@ -136,19 +172,9 @@ class VisionNetwork(nn.Module):
                  compute_dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        height, width, channels = obs_shape
         self.compute_dtype = compute_dtype
-        self.conv_names = []
-        self.strides = []
-        for i, (out_ch, k, s) in enumerate(conv_filters):
-            self.add_module(f"conv_{i}", nn.Conv2d(channels, out_ch, k, s))
-            self.conv_names.append(f"conv_{i}")
-            self.strides.append(s)
-            channels = out_ch
-            height = (height - k) // s + 1  # padding="VALID"
-            width = (width - k) // s + 1
-        self.conv_out_hw = (height, width)
-        self.fc = nn.Linear(channels * height * width, hidden)
+        flat = _add_convs(self, obs_shape, conv_filters)
+        self.fc = nn.Linear(flat, hidden)
         self.logits = nn.Linear(hidden, num_outputs)
         self.value = nn.Linear(hidden, 1)
         for name in self.conv_names + ["fc", "value"]:
@@ -158,16 +184,73 @@ class VisionNetwork(nn.Module):
     def forward(self, obs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cdt = self.compute_dtype
-        # NHWC uint8 -> NCHW compute dtype, normalized on the device. The
-        # divisor is a Python number: a 0-d tensor made on the card here
-        # would be a blocking host->device copy, a stream sync per forward.
-        x = obs.permute(0, 3, 1, 2).to(cdt) / 255.0
-        for name, stride in zip(self.conv_names, self.strides):
-            conv = getattr(self, name)
-            x = F.relu(F.conv2d(x, conv.weight.to(cdt), conv.bias.to(cdt),
-                                stride=stride))
-        x = x.reshape(x.shape[0], -1)  # (C, H, W) order
+        x = _conv_trunk(self, obs, cdt, F.relu)
         h32 = F.relu(_linear(x, self.fc, cdt)).float()
         logits = _linear(h32, self.logits, torch.float32)
         value = _linear(h32, self.value, torch.float32)
         return logits, value[..., 0]
+
+
+class QNetwork(nn.Module):
+    """Q-value network of the DQN family (`networks.py:104-146` in the
+    JAX package). Returns `(q, max_a q)`, the policy interface's
+    `(dist_inputs, value)`.
+
+    NHWC image observations (a 3-d `obs_shape`) go through the conv
+    trunk alone, in `compute_dtype` (bf16 by default), and its
+    flattened output is cast to float32; flat observations are
+    flattened in float32. Then `hiddens` dense layers with `activation`
+    (which the conv layers use too) and the head, in float32: with
+    `dueling`, `state_value + advantage - mean(advantage)`, else one
+    dense `q` layer. Every layer starts from flax's Dense/Conv defaults
+    (LeCun-normal kernels, zero biases)."""
+
+    def __init__(self, obs_shape: Sequence[int], num_actions: int,
+                 hiddens: Sequence[int] = (256,),
+                 activation: str = "relu",
+                 dueling: bool = True,
+                 conv_filters: Sequence[Tuple[int, int, int]] = (
+                     (32, 8, 4), (64, 4, 2), (64, 3, 1)),
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = _ACTIVATIONS[activation]
+        self.compute_dtype = compute_dtype
+        self.image = len(obs_shape) == 3
+        if self.image:
+            last = _add_convs(self, obs_shape, conv_filters)
+        else:
+            self.conv_names = []
+            last = int(math.prod(obs_shape))
+        self.hidden_names = []
+        for i, size in enumerate(hiddens):
+            self.add_module(f"fc_{i}", nn.Linear(last, size))
+            self.hidden_names.append(f"fc_{i}")
+            last = size
+        self.dueling = dueling
+        heads = ["advantage", "state_value"] if dueling else ["q"]
+        if dueling:
+            self.advantage = nn.Linear(last, num_actions)
+            self.state_value = nn.Linear(last, 1)
+        else:
+            self.q = nn.Linear(last, num_actions)
+        for name in self.conv_names + self.hidden_names + heads:
+            _init_layer(getattr(self, name), generator)
+
+    def forward(self, obs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.image:
+            h = _conv_trunk(self, obs, self.compute_dtype,
+                            self.activation).float()
+        else:
+            h = obs.reshape(obs.shape[0], -1).float()
+        for name in self.hidden_names:
+            h = self.activation(_linear(h, getattr(self, name),
+                                        torch.float32))
+        if self.dueling:
+            adv = _linear(h, self.advantage, torch.float32)
+            value = _linear(h, self.state_value, torch.float32)
+            q = value + adv - adv.mean(dim=-1, keepdim=True)
+        else:
+            q = _linear(h, self.q, torch.float32)
+        return q, q.max(dim=-1).values

@@ -3,9 +3,11 @@
 Counterpart of `ray_tpu/rllib/agents/trainer_template.py` (parity:
 `rllib/agents/trainer_template.py:9` `build_trainer`): an algorithm is a
 policy class + an optimizer choice (`SyncSamplesOptimizer` by default)
-+ a config check + the `after_optimizer_step` hook (PPO's adaptive KL).
-The other hooks of `build_trainer` come with the algorithms that use
-them.
++ a config check + three hooks: `after_init` (DQN's exploration
+schedule), `after_optimizer_step` (PPO's adaptive KL; DQN's epsilon and
+target-network sync) and `after_train_result` (DQN's exploration
+metrics). The JAX package's `before_init`, `before_train_step` and
+`get_policy_class` come with the algorithms that use them.
 """
 
 from __future__ import annotations
@@ -22,10 +24,18 @@ def build_trainer(name: str,
                   make_policy_optimizer: Optional[Callable] = None,
                   default_config: Optional[dict] = None,
                   validate_config: Optional[Callable] = None,
-                  after_optimizer_step: Optional[Callable] = None):
-    """Returns a Trainer subclass named `name`. `after_optimizer_step(
-    trainer, fetches)` runs after every optimizer step, inside the
-    iteration's pacing loop (`trainer_template.py:63-68`)."""
+                  after_init: Optional[Callable] = None,
+                  after_optimizer_step: Optional[Callable] = None,
+                  after_train_result: Optional[Callable] = None):
+    """Returns a Trainer subclass named `name`. The hooks
+    (`trainer_template.py:21-24` in the JAX package):
+    - `after_init(trainer)` runs once the workers and the optimizer are
+      built;
+    - `after_optimizer_step(trainer, fetches)` runs after every
+      optimizer step, inside the iteration's pacing loop
+      (`trainer_template.py:63-68`);
+    - `after_train_result(trainer, result)` runs on each iteration's
+      result dict before `train()` returns it."""
 
     class _Trainer(Trainer):
         _default_config = default_config or Trainer._default_config
@@ -40,6 +50,8 @@ def build_trainer(name: str,
                 self.optimizer = SyncSamplesOptimizer(
                     self.workers,
                     train_batch_size=config["train_batch_size"])
+            if after_init:
+                after_init(self)
 
         def _train(self):
             # Iteration pacing (parity: trainer_template.py:117-135): keep
@@ -64,7 +76,10 @@ def build_trainer(name: str,
                     done = self.group.broadcast_object(done)
                 if done:
                     break
-            return self._result_from_optimizer(self.optimizer)
+            result = self._result_from_optimizer(self.optimizer)
+            if after_train_result:
+                after_train_result(self, result)
+            return result
 
     _Trainer.__name__ = name
     _Trainer.__qualname__ = name

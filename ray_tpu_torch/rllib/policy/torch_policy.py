@@ -42,6 +42,11 @@ the feedforward, single-device path:
 - `global_timestep` counts the world's rows: on a data-parallel rank
   its own rows times D, every rank holding an equal share
   (`jax_policy.py:498`, `:548`).
+- Two constructor hooks of `JaxPolicy.__init__` (`jax_policy.py:76-82`):
+  `make_model(obs_space, action_space, config) -> nn.Module` builds the
+  network in place of `catalog.get_model` (DQN's Q-network), and
+  `postprocess_fn(policy, batch, other_agent_batches, episode)` is what
+  `postprocess_trajectory` runs (DQN's n-step folding).
 
 Left for later slices: the fsdp layout,
 `compute_gradients`/`apply_gradients`, recurrent policies and bf16
@@ -118,7 +123,9 @@ class TorchPolicy(Policy):
     """
 
     def __init__(self, observation_space, action_space, config: dict,
-                 loss_fn: Callable, loss_reduction: str):
+                 loss_fn: Callable, loss_reduction: str,
+                 make_model: Optional[Callable] = None,
+                 postprocess_fn: Optional[Callable] = None):
         super().__init__(observation_space, action_space, config)
         if loss_reduction not in LOSS_REDUCTIONS:
             raise ValueError(f"loss_reduction {loss_reduction!r}: one of "
@@ -135,9 +142,14 @@ class TorchPolicy(Policy):
                 "in bf16 by default (model.compute_dtype)")
         self.dist_class, self.dist_dim = get_action_dist(action_space)
         seed = config.get("seed") or 0
-        self.model = catalog.get_model(
-            observation_space, self.dist_dim, config.get("model"),
-            generator=torch.Generator().manual_seed(seed)).to(self.device)
+        if make_model is not None:
+            self.model = make_model(observation_space, action_space,
+                                    config).to(self.device)
+        else:
+            self.model = catalog.get_model(
+                observation_space, self.dist_dim, config.get("model"),
+                generator=torch.Generator().manual_seed(seed)).to(
+                    self.device)
         # Rollout noise (K2's uniforms, K7's normals) and the SGD epochs'
         # permutations. The rank is part of this seed only: parameters
         # start equal on every rank.
@@ -145,6 +157,7 @@ class TorchPolicy(Policy):
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed + rank)
         self._loss_fn = loss_fn
+        self._postprocess_fn = postprocess_fn
         self.preprocessor = catalog.get_preprocessor(observation_space)
         self.optimizer = default_optimizer(self.model.parameters(), config)
         # Device scalars the loss reads, and their host values (read by
@@ -257,6 +270,13 @@ class TorchPolicy(Policy):
         with self._update_lock, torch.no_grad():
             value = self.model(obs)[1]
         return value.cpu().numpy()
+
+    def postprocess_trajectory(self, batch, other_agent_batches=None,
+                               episode=None):
+        if self._postprocess_fn is not None:
+            return self._postprocess_fn(self, batch, other_agent_batches,
+                                        episode)
+        return batch
 
     # ------------------------------------------------------------------
     # learning
@@ -398,17 +418,12 @@ class TorchPolicy(Policy):
     # weights
     # ------------------------------------------------------------------
     def get_weights(self) -> Dict[str, np.ndarray]:
-        """{state_dict key: float32 numpy array}, copied to the host (a
-        copy on the CPU too, never a view of the live parameters)."""
         with self._update_lock:
-            return {k: v.detach().to("cpu", copy=True).numpy()
-                    for k, v in self.model.state_dict().items()}
+            return host_state_dict(self.model)
 
     def set_weights(self, weights) -> None:
         with self._update_lock:
-            self.model.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v)) for k, v in
-                 weights.items()})
+            load_host_state_dict(self.model, weights)
 
     def get_state(self):
         with self._update_lock:
@@ -479,11 +494,31 @@ def _tile_minibatches(batch, minibatch_size: int, seq_len: int):
     return batch, num_mb
 
 
-def read_stats(stats: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """Device stats -> Python floats in one device->host copy."""
+def host_state_dict(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """{state_dict key: float32 numpy array}, copied to the host (a copy
+    on the CPU too, never a view of the live parameters)."""
+    return {k: v.detach().to("cpu", copy=True).numpy()
+            for k, v in module.state_dict().items()}
+
+
+def load_host_state_dict(module: torch.nn.Module, weights) -> None:
+    """Load {state_dict key: array} into `module`'s own tensors."""
+    module.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                            for k, v in weights.items()})
+
+
+def read_stats(stats: Dict[str, torch.Tensor],
+               tail: Optional[torch.Tensor] = None):
+    """Device stats -> Python floats in one device->host copy. With
+    `tail`, a vector read in the same copy: returns (stats, tail as a
+    numpy f32 array)."""
     values = torch.stack([v.detach().float().reshape(())
-                          for v in stats.values()]).tolist()
-    return dict(zip(stats.keys(), values))
+                          for v in stats.values()])
+    if tail is None:
+        return dict(zip(stats.keys(), values.tolist()))
+    host = torch.cat([values, tail.detach().float().reshape(-1)]).cpu()
+    n = len(stats)
+    return dict(zip(stats.keys(), host[:n].tolist())), host[n:].numpy()
 
 
 def _to_host(tree):

@@ -32,9 +32,20 @@ import ray_tpu_torch.parallel.mesh
 import ray_tpu_torch.parallel.q8_check
 import ray_tpu_torch.rllib.agents.ppo
 import ray_tpu_torch.rllib.optimizers.sync_samples_optimizer
+import ray_tpu_torch.rllib.agents.dqn
+import ray_tpu_torch.rllib.agents.dqn.dqn_policy
+import ray_tpu_torch.models.eps_greedy
+import ray_tpu_torch.rllib.optimizers.replay_buffer
+import ray_tpu_torch.rllib.optimizers.segment_tree
+import ray_tpu_torch.rllib.optimizers.sync_replay_optimizer
+import ray_tpu_torch.rllib.utils.schedules
 from ray_tpu_torch.rllib.env import make_batched_env
 from ray_tpu_torch.rllib.env.registry import make_env
 make_env("Pendulum-v0").reset()
+from ray_tpu_torch.rllib.agents.dqn import DQNPolicy
+from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+DQNPolicy(Box(-1.0, 1.0, (4,)), Discrete(2), {"device": "cpu"}) \
+    .compute_actions([[0.0, 0.0, 0.0, 0.0]])
 make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
 env = ray_tpu_torch.rllib.env.device_env.DeviceSyntheticAtari()
 env.reset(2, seed=0, device="cpu")
@@ -75,3 +86,36 @@ def test_cuda_without_a_card_raises(no_card):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
+
+
+def test_dqn_without_a_card_raises(no_card):
+    from ray_tpu_torch.rllib.agents.dqn import DQNTrainer, SimpleQTrainer
+    for cls in (DQNTrainer, SimpleQTrainer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(config={"env": "CartPole-v0"})
+
+
+_SMOKE_PROBE = """
+import sys
+import chip_smoke
+chip_smoke.port_kernels()
+import ray_tpu_torch.rllib.agents.dqn
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "ray_tpu"))
+print("BANNED=" + ",".join(banned))
+sys.exit(chip_smoke.main())
+"""
+
+
+def test_chip_smoke_loads_no_jax_and_needs_a_card(no_card):
+    """`chip_smoke.py` and the port modules it drives load no JAX and
+    no `ray_tpu`; without a card the script exits non-zero and prints
+    no result line."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SMOKE_PROBE], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert "BANNED=\n" in out.stdout, out.stdout + out.stderr
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ray_tpu_torch._private import cuda_build
-from ray_tpu_torch.models import catalog, distributions
+from ray_tpu_torch.models import catalog, distributions, eps_greedy
 from ray_tpu_torch.models.convert import flax_pack_plan
 from ray_tpu_torch.parallel import collectives, q8_check
 from ray_tpu_torch.rllib.agents.impala import vtrace
@@ -261,6 +261,118 @@ def test_ppo_policy_on_the_card_launches_k7_and_matches_the_cpu(cuda):
     for k, v in out["cpu"].items():
         np.testing.assert_allclose(out["cuda"][k], v, rtol=1e-4, atol=1e-4,
                                    err_msg=k)
+
+
+def _q_values(B, A, device, seed):
+    """Q-values with, from B=4 on, a row of ties, a row holding a NaN,
+    an all-NaN row and a row tied at its maximum."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, A, generator=gen, device=device)
+    if B >= 4:
+        q[0] = 0.5
+        q[1, A // 2] = float("nan")
+        q[2] = float("nan")
+        q[3, 0] = q[3, A - 1] = 9.0
+    u = torch.rand(B, 2, generator=gen, device=device)
+    return q, u
+
+
+@pytest.mark.gpu
+# (1, 6): the DQN Atari path's (one env, 6 actions); (1, 2): the DQN
+# CartPole path's; (32, 18), (4096, 18): the full Atari action set;
+# (5, 40): A over a warp's 32 lanes; (3, 1): one action.
+@pytest.mark.parametrize("B,A", [(1, 6), (1, 2), (32, 18), (4096, 18),
+                                 (5, 40), (3, 1)])
+@pytest.mark.parametrize("eps", [0.0, 0.3, 1.0])
+def test_eps_greedy_kernel_matches_plain(cuda, B, A, eps):
+    """K8 and its plain version agree exactly on the same uniforms."""
+    q, u = _q_values(B, A, cuda, seed=B * A)
+    before = eps_greedy.EPS_GREEDY_KERNEL.launches
+    got = eps_greedy.eps_greedy(q, u, eps)
+    torch.cuda.synchronize()
+    assert eps_greedy.EPS_GREEDY_KERNEL.launches == before + 1
+    want = eps_greedy._eps_greedy_plain(q, u, eps)
+    assert got.dtype == torch.int64 and got.shape == (B,)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_eps_greedy_kernel_takes_the_first_maximum_and_nan(cuda):
+    nan, inf = float("nan"), float("inf")
+    q = torch.tensor([[0.5, 2.0, 2.0, -1.0], [3.0, 3.0, 3.0, 3.0],
+                      [1.0, nan, 5.0, nan], [nan, nan, nan, nan],
+                      [-inf, -inf, -inf, -inf], [1.0, inf, 2.0, inf]],
+                     device=cuda)
+    u = torch.full((6, 2), 0.5, device=cuda)
+    assert eps_greedy.eps_greedy(q, u, 0.0).tolist() == [1, 0, 1, 0, 0, 1]
+    top = float(np.nextafter(np.float32(1), np.float32(0)))
+    u = torch.tensor([[0.0, top]] * 6, device=cuda)
+    assert eps_greedy.eps_greedy(q, u, 0.5).tolist() == [3] * 6
+
+
+@pytest.mark.gpu
+def test_eps_greedy_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(4, 6, device=cuda)
+    u = torch.zeros(4, 2, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        eps_greedy._eps_greedy_cuda(q.half(), u, 0.1)
+    with pytest.raises(ValueError, match="uniforms"):
+        eps_greedy._eps_greedy_cuda(q, torch.zeros(4, 3, device=cuda), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        eps_greedy._eps_greedy_cuda(torch.zeros(6, 4, device=cuda).t(), u,
+                                    0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("image", [True, False], ids=["frames", "flat"])
+def test_dqn_policy_on_the_card_launches_k8_and_matches_the_cpu(cuda,
+                                                                 image):
+    """One env step of a 16-env batch launches K8 once; one
+    learn_with_td on the card (f32 trunk, TF32 off) equals the same
+    update on the CPU from the same online and target weights (1e-4 on
+    the stats and |td|)."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.dqn import DQNPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    if image:
+        space, shape = Box(0, 255, (84, 84, 4), np.uint8), (84, 84, 4)
+    else:
+        space, shape = Box(-1.0, 1.0, (4,)), (4,)
+    cfg = {"model": {"compute_dtype": "f32", "fcnet_hiddens": [64]},
+           "hiddens": [64], "n_step": 3, "seed": 0}
+    card = DQNPolicy(space, Discrete(6), dict(cfg, device="cuda"))
+    host = DQNPolicy(space, Discrete(6), dict(cfg, device="cpu"))
+    weights = card.get_weights()
+    rng = np.random.default_rng(0)
+    weights["target"] = {k: v + 0.01 * rng.standard_normal(v.shape).astype(
+        np.float32) for k, v in weights["target"].items()}
+    card.set_weights(weights)
+    host.set_weights(weights)
+    n = 32
+
+    def frames(*lead):
+        if image:
+            return rng.integers(0, 256, lead + shape, dtype=np.uint8)
+        return rng.standard_normal(lead + shape).astype(np.float32)
+
+    card.set_epsilon(0.3)
+    k8 = eps_greedy.EPS_GREEDY_KERNEL.launches
+    actions, state, extra = card.compute_actions(frames(16))
+    assert eps_greedy.EPS_GREEDY_KERNEL.launches == k8 + 1
+    assert actions.shape == (16,) and state == [] and extra == {}
+    batch = SampleBatch({
+        sb.OBS: frames(n), sb.NEW_OBS: frames(n),
+        sb.ACTIONS: rng.integers(0, 6, n),
+        sb.REWARDS: rng.standard_normal(n).astype(np.float32),
+        sb.DONES: rng.random(n) < 0.2,
+        "weights": rng.uniform(0.2, 1.0, n).astype(np.float32)})
+    got, got_td = card.learn_with_td(batch)
+    want, want_td = host.learn_with_td(batch)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(got_td, want_td, rtol=1e-4, atol=1e-4)
 
 
 def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
@@ -661,6 +773,16 @@ def test_new_kernels_have_sources_and_entry_points():
     assert collectives.Q8_ENCODE_KERNEL.source.name == "q8.cu"
     assert collectives.Q8_GATHER_SUM_KERNEL.library_path() \
         == collectives.Q8_ENCODE_KERNEL.library_path()
+
+
+def test_eps_greedy_kernel_has_its_source_and_entry_point():
+    kernel = eps_greedy.EPS_GREEDY_KERNEL
+    source = kernel.source.read_text()
+    assert kernel.source.name == "eps_greedy.cu"
+    assert f'extern "C" int {kernel.symbol}(' in source
+    assert "kernel_error_string" in source
+    # A library of its own, named by its own source.
+    assert kernel.library_path().name.startswith("libeps_greedy-")
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -140,16 +140,42 @@ def test_compute_dtype_resolution(monkeypatch):
         catalog.resolve_compute_dtype("fp8")
 
 
-@pytest.mark.parametrize("kind", ["vision", "fc", "fc_free_log_std"])
+def _q_pair(image, dueling, hiddens=(16,)):
+    """A JAX `QNetwork` (flax params, seed 2) and the port's of the same
+    architecture with the converted weights: Nature filters on 84x84x4
+    frames, or an 8-wide flat observation."""
+    from ray_tpu.models.networks import QNetwork as JaxQNetwork
+    from ray_tpu_torch.models.networks import QNetwork
+    shape = FRAME if image else (8,)
+    dtype = np.uint8 if image else np.float32
+    jax_model = JaxQNetwork(num_actions=5, hiddens=hiddens,
+                            dueling=dueling)
+    params = jax.tree.map(np.asarray, jax_model.init(
+        jax.random.PRNGKey(2), np.zeros((1,) + shape, dtype)))
+    model = QNetwork(shape, 5, hiddens=hiddens, dueling=dueling)
+    model.load_state_dict(flax_to_state_dict(params))
+    return params, model
+
+
+@pytest.mark.parametrize("kind", ["vision", "fc", "fc_free_log_std",
+                                  "q_image_dueling", "q_image",
+                                  "q_flat_dueling", "q_flat",
+                                  "q_image_no_hidden"])
 def test_flax_leaves_invert_the_converter(kind):
     """The way back for gradients: `flax_leaves` of a converted
     state_dict gives the flax leaves themselves, in jax's tree-flatten
     order and each in its own element order; the exchange's pack plan
     puts them, so flattened, in block-aligned slots and back. With
     `free_log_std` the bare `log_std` leaf (set away from its zero init
-    here) is one of them."""
+    here) is one of them. The Q networks (dueling or not, on frames or
+    flat observations; on frames with no hidden layer the heads read
+    the conv output) take the same way back."""
     if kind == "vision":
         _, params, model, _ = _vision_pair("f32")
+    elif kind.startswith("q_"):
+        params, model = _q_pair(
+            "image" in kind, "dueling" in kind,
+            () if "no_hidden" in kind else (16,))
     else:
         space = (8,)
         free = kind == "fc_free_log_std"
