@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py dp    # phase 6 alone, on a machine of 2+ cards
     python3 chip_smoke.py dqn   # phase 9 alone (K8 built alone)
+    python3 chip_smoke.py sac   # phase 10 with K9's part of phase 2
 
-Nine phases, any failure exits non-zero (no phase is caught, nothing
+Ten phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -87,6 +88,20 @@ falls back to the CPU):
    trunk (`DQN_BF16_TOL`) and with an f32 trunk, TF32 off (1e-4). Then
    a DQN CartPole leg at `tuned_examples/cartpole-dqn.yaml`'s settings,
    3 iterations, for the MLP path (K8 once per env step).
+10. SAC on Pendulum-v0: `SACTrainer` at `sac.py`'s DEFAULT_CONFIG (actor
+   and twin critics [256, 256] ReLU, f32, 256-row batches, a replay of
+   100,000, tau 5e-3, learned alpha from 1, 1,000 pure-exploration and
+   1,500 learning-start steps) with `no_done_at_end`, 3 iterations of
+   1,000 env steps, one evaluation episode with the third: with every
+   kernel's count set to 0 before, the squashed-Gaussian tail (K9f) once
+   per acted env step past pure exploration, once per evaluation step
+   and twice per update, its backward (K9b) once per update, and no
+   other kernel. Then one 200-step iteration profiled, 50 updates split
+   into their parts (replay sample, upload, critic, actor and alpha
+   steps, the read), and one `learn_with_td` of the trained weights on
+   the last replay batch with injected normals on the card against the
+   CPU (f32, TF32 off; 1e-4 of 1 + |CPU| on every stat, |td| and
+   parameter).
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
@@ -99,7 +114,12 @@ sampling tail, at Pendulum's shape (8 x 1, timed) and at 4096 x 17,
 exploring and not (1e-6 + 1e-6 relative; the mean itself when not);
 and K8, the epsilon-greedy tail, at the DQN Atari path's 1 x 6 (timed),
 the CartPole leg's 1 x 2, 32 x 18 and 4096 x 18, each at epsilon 0,
-0.3 and 1, with rows of ties and of NaN (the actions equal).
+0.3 and 1, with rows of ties and of NaN (the actions equal); K9f and
+K9b, the squashed-Gaussian tail and its backward, at the SAC path's 1 x 1
+and 256 x 1 (both timed), 256 x 6 and 4096 x 17, at low/high = +-2, with
+raw log_std beyond both clip bounds and |pre| >= 10, exploring and not;
+the backward with both upstream gradients, each absent, and through the
+autograd function (SQUASHED_TOL).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -268,6 +288,23 @@ DQN_CARTPOLE_CONFIG = {
 # bf16 rounds the Q-values, and a TD error is a difference of two.
 # Three times the largest reading.
 DQN_BF16_TOL = 5e-2
+
+# Phase 10: SAC on Pendulum-v0 at ray_tpu/rllib/agents/sac/sac.py's
+# DEFAULT_CONFIG (actor and twin critics [256, 256] ReLU in f32, 256-row
+# batches, a replay of 100,000, tau 5e-3, initial alpha 1, target entropy
+# -|A|) with tuned_examples/pendulum-sac.yaml's no_done_at_end; one env,
+# 1,000 steps per iteration, evaluation of one episode every third.
+SAC_CONFIG = {"env": "Pendulum-v0", "no_done_at_end": True, "seed": 0,
+              "device": "cuda", "evaluation_interval": 3,
+              "evaluation_num_episodes": 1}
+SAC_ITERS = 3  # 0 explores purely, 1 and 2 learn (from step 1,500 on)
+SAC_PROFILED_STEPS = 200  # one more, shorter iteration, profiled
+SAC_SPLIT_UPDATES = 50  # updates timed part by part, synced between parts
+# K9f/K9b against their plain versions: |kernel - plain| <= TOL + TOL *
+# |plain|. Both run the same f32 steps in the same order; CUDA's expf,
+# tanhf and log1pf may differ by an ulp from PyTorch's build of them, and
+# the log-det term is a difference of terms up to ~40 (log_std at -20).
+SQUASHED_TOL = 1e-5
 
 # Phase 6: phase 3's configuration on a world of 2 ranks (16 envs each).
 DP_RANKS = 2
@@ -708,6 +745,140 @@ def check_eps_greedy(B, A, timed):
     return row
 
 
+def squashed_bytes_ops(B, d, explore=True):
+    """K9f's bytes (x and, exploring, z read once; actions and logp
+    written once) and f32 operations (~30 per element: the clamp, exp,
+    sample, tanh, squash, the Gaussian term and the log-det with its
+    softplus' exp and log1p, the row sum; one per row)."""
+    return 4 * (2 * B * d + (B * d if explore else 0) + B * d + B), \
+        30 * B * d + B
+
+
+def squashed_backward_bytes_ops(B, d):
+    """K9b's bytes with both upstream gradients (x, z, g_a and g_logp
+    read once, g_x written once) and f32 operations (~20 per element:
+    the clamp, exp, sample and tanh again, g_pre, the mask and g_raw)."""
+    return 4 * (2 * B * d + B * d + B * d + B + 2 * B * d), 20 * B * d
+
+
+def squashed_inputs(B, d, seed, margin):
+    """K9 inputs on the card: x [B, 2d] = [mean, raw log_std] and z [B, d]
+    normals. Every third row's mean is scaled up so that |pre| >= 10
+    (tanh saturates) and raw log_std spreads over [-25, 5), beyond both
+    clip bounds; with `margin`, no raw log_std lies within it of a bound
+    (the backward's mask has a kink there)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mean = torch.randn(B, d, generator=g, device="cuda") * 3.0
+    mean[::3] *= 6.0
+    raw = torch.rand(B, d, generator=g, device="cuda") * 30.0 - 25.0
+    if margin:
+        near = ((raw + 20.0).abs() < margin) | ((raw - 2.0).abs() < margin)
+        raw = torch.where(near, raw + 3 * margin, raw)
+    z = torch.randn(B, d, generator=g, device="cuda")
+    return torch.cat([mean, raw], dim=1).contiguous(), z
+
+
+def _close(got, want, what):
+    import torch
+    bad = (got - want).abs() > SQUASHED_TOL + SQUASHED_TOL * want.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: max err "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def check_squashed_gaussian(B, d, timed):
+    """K9f against its plain version, exploring and not, at low/high =
+    +-2; K9b against its plain backward with both upstream gradients and
+    with each one absent, and through the autograd function (K9b must
+    launch for a gradient to x). Within SQUASHED_TOL."""
+    import torch
+    from ray_tpu_torch.models import distributions as D
+    low, high = -2.0, 2.0
+    x, z = squashed_inputs(B, d, seed=B * d + 9, margin=0.0)
+    if B >= 256:
+        pre = x[:, :d] + torch.exp(x[:, d:].clamp(-20.0, 2.0)) * z
+        if not (bool((pre.abs() >= 10).any()) and bool((x[:, d:] < -20).any())
+                and bool((x[:, d:] > 2).any())):
+            raise AssertionError("K9 inputs miss the saturating or clipped "
+                                 "cases")
+    err = 0.0
+    for explore in (True, False):
+        zz = z if explore else None
+        got = D.squashed_gaussian_sample_logp(x, zz, low, high, explore)
+        want = D._squashed_gaussian_plain(x, zz, low, high, explore)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("actions", "logp")):
+            err = max(err, _close(g, w, f"squashed_gaussian {what} at "
+                                        f"B={B} d={d} explore={explore}"))
+        if bool((got[0] < low).any()) or bool((got[0] > high).any()):
+            raise AssertionError("squashed_gaussian: an action out of "
+                                 "[low, high]")
+    xb, zb = squashed_inputs(B, d, seed=B * d + 10, margin=1e-3)
+    g = torch.Generator(device="cuda").manual_seed(B + d)
+    ga = torch.randn(B, d, generator=g, device="cuda")
+    gl = torch.randn(B, generator=g, device="cuda")
+    err_b = 0.0
+    for g_a, g_l in ((ga, gl), (None, gl), (ga, None)):
+        got = D._squashed_gaussian_backward_cuda(xb, zb, g_a, g_l, low,
+                                                 high, True)
+        want = D._squashed_gaussian_backward_plain(xb, zb, g_a, g_l, low,
+                                                   high, True)
+        torch.cuda.synchronize()
+        err_b = max(err_b, _close(got, want, f"squashed_gaussian backward "
+                                              f"at B={B} d={d}"))
+    xg = xb.clone().requires_grad_(True)
+    before = D.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches
+    torch.autograd.backward(
+        D.squashed_gaussian_sample_logp(xg, zb, low, high), [ga, gl])
+    if D.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches != before + 1:
+        raise AssertionError("the tail's gradient did not launch K9b")
+    err_b = max(err_b, _close(xg.grad, D._squashed_gaussian_backward_plain(
+        xb, zb, ga, gl, low, high, True), "squashed_gaussian autograd"))
+    row = {"B": B, "d": d, "max_abs_err": err, "max_abs_err_backward": err_b}
+    if timed:
+        row["ms"] = time_call(lambda: D.squashed_gaussian_sample_logp(
+            x, z, low, high, True), reps=2000)
+        row["plain_ms"] = time_call(lambda: D._squashed_gaussian_plain(
+            x, z, low, high, True), reps=500)
+        row["device_ms"] = device_ms(lambda: D.squashed_gaussian_sample_logp(
+            x, z, low, high, True), "squashed_gaussian_sample_kernel")
+        row["b_ms"] = time_call(lambda: D._squashed_gaussian_backward_cuda(
+            xb, zb, ga, gl, low, high, True), reps=2000)
+        row["b_plain_ms"] = time_call(
+            lambda: D._squashed_gaussian_backward_plain(
+                xb, zb, ga, gl, low, high, True), reps=500)
+        row["b_device_ms"] = device_ms(
+            lambda: D._squashed_gaussian_backward_cuda(
+                xb, zb, ga, gl, low, high, True),
+            "squashed_gaussian_backward_kernel")
+    log(f"  squashed_gaussian B={B} d={d}: forward max_abs_err={err:.3e}, "
+        f"backward {err_b:.3e} (tol {SQUASHED_TOL} + {SQUASHED_TOL}"
+        f"*|plain|; backward with g_a, g_logp, each absent, and through "
+        f"autograd)"
+        + (f"; K9f {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(device-only {row['device_ms']} ms); K9b {row['b_ms']:.5f} "
+           f"ms plain {row['b_plain_ms']:.5f} ms (device-only "
+           f"{row['b_device_ms']} ms)" if timed else ""))
+    return row
+
+
+def check_squashed_gaussian_all():
+    """K9 at the SAC path's shapes (1 x 1 per env step, 256 x 1 per
+    update; both timed) and at 256 x 6 and 4096 x 17. -> (the 256 x 1
+    row, its K9f bound, its K9b bound)."""
+    check_squashed_gaussian(1, 1, timed=True)
+    row = check_squashed_gaussian(256, 1, timed=True)
+    check_squashed_gaussian(256, 6, timed=False)
+    check_squashed_gaussian(4096, 17, timed=False)
+    fwd = bound_ms(*squashed_bytes_ops(256, 1))
+    bwd = bound_ms(*squashed_backward_bytes_ops(256, 1))
+    log(f"  bound ms at B=256 d=1: squashed_gaussian_sample {fwd[0]:.3e} "
+        f"({fwd[1]}), squashed_gaussian_backward {bwd[0]:.3e} ({bwd[1]})")
+    return row, fwd, bwd
+
+
 ENV_TIMED_REPS, ENV_TIMED_WARMUP = 1000, 10
 
 
@@ -885,6 +1056,7 @@ def profile_iteration(trainer):
     report = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else "not measured",
+        "device_kernel_launches": sum(e.count for e in kernels),
         "device_idle_share": 1.0 - busy_ms / wall_ms if kernels
         else "not measured",
         "top_kernels": [[e.key[:60], e.count,
@@ -1830,7 +2002,9 @@ def port_kernels():
             device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
             collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL,
             distributions.DIAG_GAUSSIAN_KERNEL,
-            eps_greedy.EPS_GREEDY_KERNEL]
+            eps_greedy.EPS_GREEDY_KERNEL,
+            distributions.SQUASHED_GAUSSIAN_KERNEL,
+            distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL]
 
 
 def run_dqn(name, config, iters, profile_last):
@@ -2050,6 +2224,277 @@ def run_phase9():
     return k8_launches + cartpole_k8
 
 
+# ---------------------------------------------------------------------
+# phase 10: SAC
+# ---------------------------------------------------------------------
+def split_sac_update(trainer, n):
+    """`n` updates from the trainer's replay, each split into its parts
+    on the host clock with the card synced after each: the replay
+    sample, the upload, the three steps (critic, with the normal draws;
+    actor; alpha with the Polyak average) and the one read. -> ms per
+    part."""
+    import torch
+    from ray_tpu_torch.rllib.agents.sac.sac_policy import sb
+    from ray_tpu_torch.rllib.policy.torch_policy import read_stats
+    policy = trainer.get_policy()
+    buffer = trainer.optimizer.replay_buffer
+    rows = trainer.config["train_batch_size"]
+    parts = dict.fromkeys(("replay_sample", "upload", "critic_step",
+                           "actor_step", "alpha_step", "read"), 0.0)
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[key] += time.perf_counter() - t
+        return out
+
+    torch.cuda.synchronize()
+    for _ in range(n):
+        batch = timed("replay_sample", lambda: buffer.sample(rows))
+        dev = timed("upload", lambda: policy._device_batch(batch))
+        with policy._update_lock:
+            stats = timed("critic_step", lambda: policy.critic_step(
+                dev, policy.update_normals(dev[sb.OBS].shape[0])[0]))
+            z = policy.update_normals(rows)[1]
+            stats.update(timed("actor_step",
+                               lambda: policy.actor_step(dev, z)))
+            stats.update(timed("alpha_step",
+                               lambda: policy.alpha_step(stats["entropy"])))
+        td = stats.pop("td_error")
+        timed("read", lambda: read_stats(stats, td.abs()))
+    return {k: 1e3 * v / n for k, v in parts.items()}
+
+
+def run_sac():
+    """`SAC_ITERS` iterations of `SACTrainer(SAC_CONFIG)` with every
+    kernel's count set to 0 just before: K9f must launch once per acted
+    env step (past `pure_exploration_steps`), once per evaluation step
+    and twice per update, K9b once per update, and no other kernel at
+    all; the third iteration must carry the evaluation, and alpha must
+    have moved down from 1. Then one shorter iteration profiled and
+    `SAC_SPLIT_UPDATES` updates split into their parts. Returns
+    (trainer, K9f launches, K9b launches, the last replay batch)."""
+    import torch
+    from ray_tpu_torch.rllib.agents.sac import SACTrainer
+
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = SACTrainer(config=dict(SAC_CONFIG))
+    policy = trainer.get_policy()
+    cfg = trainer.config
+    log(f"  sac_pendulum: trainer built in {time.perf_counter() - t0:.2f} "
+        f"s: {policy.num_params()} trainable params (the target critic as "
+        f"many as the critic), device {policy.device}")
+    want = torch.device(SAC_CONFIG["device"]).type
+    for p in list(policy.actor.parameters()) \
+            + list(policy.critic.parameters()):
+        if p.device.type != want:
+            raise AssertionError(f"parameter on {p.device}, not {want}")
+    last_batch = []
+    real_learn = policy.learn_with_td
+
+    def learn_with_td(batch, **kwargs):
+        last_batch[:] = [batch]
+        return real_learn(batch, **kwargs)
+
+    policy.learn_with_td = learn_with_td
+    timers = trainer.optimizer.timers
+    kernels = port_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    rows = []
+    for i in range(SAC_ITERS):
+        sample0, learn0 = timers["sample"].total, timers["learn"].total
+        trained0 = trainer.optimizer.num_steps_trained
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = result["timesteps_this_iter"]
+        updates = (result["num_steps_trained"] - trained0) \
+            // cfg["train_batch_size"]
+        learn_s = timers["learn"].total - learn0
+        learner = result["info"]["learner"]
+        row = {"s": dt, "steps": steps, "updates": updates,
+               "sample_s": timers["sample"].total - sample0,
+               "learn_s": learn_s,
+               "update_ms": 1e3 * learn_s / updates if updates else None,
+               "episode_reward_mean": result["episode_reward_mean"],
+               "evaluation": result.get("evaluation"), "learner": learner}
+        log(f"  sac_pendulum iter {i}: {dt:.3f} s, {steps} env steps, "
+            f"{steps / dt:.1f} env steps/s, {updates} updates "
+            f"({row['update_ms']} ms each with the replay sample), sample "
+            f"{row['sample_s']:.3f} s, learner {json.dumps(learner)}, "
+            f"reward mean {row['episode_reward_mean']}, evaluation "
+            f"{json.dumps(row['evaluation'])}")
+        if not all(math.isfinite(v) for v in learner.values()):
+            raise AssertionError(f"sac_pendulum: non-finite stats at iter "
+                                 f"{i}")
+        rows.append(row)
+    launches = {k.name: k.launches for k in kernels}
+    evaluation = result.get("evaluation")
+    if evaluation is None or any(r["evaluation"] for r in rows[:-1]):
+        raise AssertionError("sac_pendulum: the evaluation must come with "
+                             "the third iteration, and only there")
+    eval_steps = round(evaluation["episode_len_mean"]
+                       * evaluation["episodes_this_iter"])
+    acted = result["num_steps_sampled"] - cfg["pure_exploration_steps"]
+    updates = result["num_steps_trained"] // cfg["train_batch_size"]
+    want = {"squashed_gaussian": acted + eval_steps + 2 * updates,
+            "squashed_gaussian_backward": updates}
+    if updates <= 0 or any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(
+            f"sac_pendulum: launches {launches} for {acted} acted env "
+            f"steps, {eval_steps} evaluation steps and {updates} updates "
+            f"(want {want})")
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    if others:
+        raise AssertionError(f"sac_pendulum: kernels of other paths "
+                             f"launched: {others}")
+    alpha = result["info"]["learner"]["alpha"]
+    if not alpha < 1.0:
+        raise AssertionError(f"sac_pendulum: alpha {alpha} did not move "
+                             "down from 1")
+    peak = torch.cuda.max_memory_allocated()
+    trainer.config["timesteps_per_iteration"] = SAC_PROFILED_STEPS
+    _, prof = profile_iteration(trainer)
+    split = split_sac_update(trainer, SAC_SPLIT_UPDATES)
+    steady = rows[-1]
+    summary = {
+        "iterations": SAC_ITERS,
+        "iter_s": [r["s"] for r in rows],
+        "env_steps_per_s_learning": steady["steps"] / steady["s"],
+        "sample_s_learning": steady["sample_s"],
+        "learn_s_learning": steady["learn_s"],
+        "update_ms_learning": steady["update_ms"],
+        "update_split_ms_synced": split,
+        "updates": updates, "acted_env_steps": acted,
+        "evaluation_steps": eval_steps,
+        "num_steps_sampled": result["num_steps_sampled"],
+        "num_steps_trained": result["num_steps_trained"],
+        "alpha": alpha,
+        "max_memory_allocated_bytes": peak,
+        "memory_allocated_before_bytes": held_before,
+        "launches": launches,
+        "profiled_iteration": prof,
+    }
+    log(f"  sac_pendulum summary: {json.dumps(summary)}")
+    return (trainer, launches["squashed_gaussian"],
+            launches["squashed_gaussian_backward"], last_batch[0])
+
+
+def check_sac_against_cpu(trainer, batch):
+    """One `learn_with_td` of the trained weights on the last replay
+    batch, with the same injected normals, on the card against the CPU,
+    f32 with TF32 off: every stat, |td| and parameter (actor, critic,
+    log_alpha, target critic) within 1e-4 * (1 + |CPU|)."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rllib.agents.sac import SACPolicy
+    policy = trainer.get_policy()
+    cfg = {k: v for k, v in policy.config.items() if k != "device"}
+    rng = np.random.default_rng(0)
+    shape = (batch.count, policy.action_dim)
+    normals = (rng.standard_normal(shape).astype(np.float32),
+               rng.standard_normal(shape).astype(np.float32))
+    weights = policy.get_weights()
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            pol = SACPolicy(policy.observation_space, policy.action_space,
+                            dict(cfg, device=device))
+            pol.set_weights(weights)
+            stats, td = pol.learn_with_td(batch, _normals=normals)
+            out[device] = (stats, td, pol.get_weights())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    (card, card_td, card_w), (cpu, cpu_td, cpu_w) = out["cuda"], out["cpu"]
+    rel = {k: abs(card[k] - v) / (1.0 + abs(v)) for k, v in cpu.items()}
+    rel["|td|"] = float(np.max(np.abs(card_td - cpu_td)
+                               / (1.0 + np.abs(cpu_td))))
+    for part in ("online", "target"):
+        for net, value in cpu_w[part].items():
+            leaves = value.items() if isinstance(value, dict) \
+                else [("", value)]
+            for k, v in leaves:
+                got = card_w[part][net][k] if k else card_w[part][net]
+                rel[f"{part}.{net}.{k}".rstrip(".")] = float(np.max(
+                    np.abs(got - v) / (1.0 + np.abs(v))))
+    worst = max(rel.values())
+    pairs = {k: [card[k], v] for k, v in cpu.items()}
+    log(f"  card vs CPU learn_with_td (f32, TF32 off, {batch.count} rows, "
+        f"injected normals; tol 1e-4 * (1 + |CPU|)): {json.dumps(pairs)}; "
+        f"largest scaled difference {worst:.3e} "
+        f"({max(rel, key=rel.get)})")
+    bad = {k: v for k, v in rel.items() if not v <= 1e-4}
+    if bad:
+        raise AssertionError(f"card SAC update disagrees with the CPU: "
+                             f"{bad}")
+
+
+def run_phase10():
+    """SAC on Pendulum and its card-vs-CPU update. -> (K9f launches, K9b
+    launches)."""
+    log("phase 10: SACTrainer at full width on Pendulum-v0 (squashed "
+        "Gaussian, K9f + K9b)")
+    trainer, k9f, k9b, batch = run_sac()
+    check_sac_against_cpu(trainer, batch)
+    trainer.stop()
+    return k9f, k9b
+
+
+def k9_entries(row, fwd, bwd, k9f, k9b):
+    """The kernels line's K9f and K9b entries."""
+    return [
+        {"name": "squashed_gaussian_sample", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/squashed_gaussian.cu",
+         "replaces": "ray_tpu/rllib/agents/sac/sac_policy.py:137",
+         "launches": k9f, "max_abs_err": row["max_abs_err"],
+         "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": fwd[0], "bound_by": fwd[1], "library_ms": None},
+        {"name": "squashed_gaussian_backward", "route": "cuda",
+         "source": "ray_tpu_torch/csrc/squashed_gaussian.cu",
+         "replaces": "ray_tpu/rllib/agents/sac/sac_policy.py:188",
+         "launches": k9b, "max_abs_err": row["max_abs_err_backward"],
+         "ms": row["b_ms"], "plain_ms": row["b_plain_ms"],
+         "bound_ms": bwd[0], "bound_by": bwd[1], "library_ms": None},
+    ]
+
+
+def log_build(kernels):
+    """Build `kernels` (one nvcc per source, all at once) and log ptxas's
+    register/spill lines."""
+    from ray_tpu_torch._private import cuda_build
+    t0 = time.perf_counter()
+    reports = cuda_build.build_all(kernels, verbose=True)
+    log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "entry function" in line or "Used" in line \
+                    or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def finish(card, entries):
+    """The last three lines: the kernels, the card, the result."""
+    import torch
+    log(json.dumps({"kernels": entries}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2077,6 +2522,14 @@ def main():
         log("phase 6 alone: IMPALATrainer, data-parallel learner")
         log(json.dumps({"launches": run_dp()}))
         return 0
+    if sys.argv[1:] == ["sac"]:
+        # Phase 10 alone, with K9's checks of phase 2 (K9 built alone).
+        log("phase 1: build (K9f, K9b)")
+        log_build([distributions.SQUASHED_GAUSSIAN_KERNEL,
+                   distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL])
+        log("phase 2: K9f and K9b vs plain")
+        k9 = check_squashed_gaussian_all()
+        return finish(card, k9_entries(*k9, *run_phase10()))
     if sys.argv[1:] == ["dqn"]:
         # Phase 9 alone: its host-bound rates without phases 1-8 before.
         from ray_tpu_torch.models import eps_greedy
@@ -2085,16 +2538,7 @@ def main():
         return 0
 
     log("phase 1: build")
-    kernels = port_kernels()
-    t0 = time.perf_counter()
-    reports = cuda_build.build_all(kernels, verbose=True)
-    log(f"  built {len(kernels)} kernels from {len(reports)} sources in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name, text in reports.items():
-        for line in text.splitlines():
-            if "entry function" in line or "Used" in line \
-                    or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    log_build(port_kernels())
 
     log("phase 2: kernels vs plain")
     T, B, A = FRAGMENT, NUM_ENVS, NUM_ACTIONS
@@ -2190,6 +2634,9 @@ def main():
     log(f"  bound ms: eps_greedy B=1 A={NUM_ACTIONS} {k8_bound[0]:.3e} "
         f"({k8_bound[1]}, {eps_greedy_bytes_ops(1, NUM_ACTIONS)[0]} B)")
 
+    # K9f and K9b at the SAC path's shapes and two larger ones.
+    k9 = check_squashed_gaussian_all()
+
     log("phase 3: IMPALATrainer at full width, local mode")
     weights, launches = run_trainer()
     check_update_against_cpu(weights)
@@ -2241,8 +2688,9 @@ def main():
     gc.collect()
 
     k8_launches = run_phase9()
+    k9_launches = run_phase10()
 
-    kernels_line = {"kernels": [
+    entries = [
         {"name": "vtrace", "route": "cuda",
          "source": "ray_tpu_torch/csrc/vtrace.cu",
          "replaces": "ray_tpu/rllib/agents/impala/vtrace.py:24",
@@ -2320,13 +2768,8 @@ def main():
          "ms": k8["ms"], "plain_ms": k8["plain_ms"],
          "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
          "library_ms": None},
-    ]}
-    log(json.dumps(kernels_line))
-    log(card)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    ] + k9_entries(*k9, *k9_launches)
+    return finish(card, entries)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,15 @@ before `kernel`), and `flax_pack_plan` turns that into the packing of
 the data-parallel gradient exchange (`parallel/collectives.py`): every
 leaf in a block-aligned slot of one buffer, so that the q8 codes,
 scales and residuals are the JAX package's, leaf by leaf.
+`state_dict_to_flax` builds the flax params tree itself from those
+leaves.
+
+SAC keeps three parameter sets and a target (`sac_policy.py:96-119`):
+`sac_weights_from_flax` turns the JAX SAC policy's weights
+`{"online": {"actor", "critic", "log_alpha"}, "target": {"critic"}}`
+into the port's (a state dict per network, `log_alpha` as a 0-d array)
+and `sac_weights_to_flax` goes back; its networks are dense only, so
+each layer is the `Linear` transpose.
 """
 
 from __future__ import annotations
@@ -192,3 +201,48 @@ def flax_pack_plan(model: torch.nn.Module, block: int) -> PackPlan:
     unpack_index[pack_index[real]] = torch.nonzero(real)[:, 0]
     return PackPlan(pack_index, unpack_index, sizes,
                     pack_index.numel() // block)
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
+                       conv_out_hw: Optional[Tuple[int, int]] = None
+                       ) -> Dict[str, Dict]:
+    """Port `state_dict` -> flax params tree `{"params": {layer:
+    {"kernel", "bias"}}}` of float32 numpy arrays: the inverse of
+    `flax_to_state_dict`."""
+    layers = {}
+    for layer, kind, tensor in flax_leaves(state_dict, conv_out_hw):
+        value = np.array(tensor.detach().cpu().numpy(), dtype=np.float32)
+        if kind is None:
+            layers[layer] = value
+        else:
+            layers.setdefault(layer, {})[kind] = value
+    return {"params": layers}
+
+
+def sac_weights_from_flax(weights: Mapping) -> Dict[str, Dict]:
+    """The JAX SAC policy's `get_weights()` (flax trees, numpy leaves) ->
+    the port's `SACPolicy.set_weights` input."""
+    def sd(tree):
+        return {k: v.numpy() for k, v in flax_to_state_dict(tree).items()}
+
+    online, target = weights["online"], weights["target"]
+    return {"online": {"actor": sd(online["actor"]),
+                       "critic": sd(online["critic"]),
+                       "log_alpha": np.asarray(online["log_alpha"],
+                                               np.float32)},
+            "target": {"critic": sd(target["critic"])}}
+
+
+def sac_weights_to_flax(weights: Mapping) -> Dict[str, Dict]:
+    """The port's `SACPolicy.get_weights()` -> the JAX SAC policy's
+    weights layout."""
+    def tree(state):
+        return state_dict_to_flax({k: torch.as_tensor(np.asarray(v))
+                                   for k, v in state.items()})
+
+    online, target = weights["online"], weights["target"]
+    return {"online": {"actor": tree(online["actor"]),
+                       "critic": tree(online["critic"]),
+                       "log_alpha": np.asarray(online["log_alpha"],
+                                               np.float32)},
+            "target": {"critic": tree(target["critic"])}}

@@ -17,6 +17,16 @@ std * z or the mean, and the logp of that action) is the kernel
 `csrc/diag_gaussian.cu` (K7), with its plain version
 `_gaussian_sample_logp_plain`. `logp`, `entropy` and `kl` stay plain
 PyTorch: the learner differentiates them.
+
+SAC's tanh-squashed Gaussian tail (`squashed_gaussian_sample_logp`: the
+clipped log_std, the reparameterized sample squashed to [low, high] and
+its logp with the stable log-det) carries a gradient, since the actor
+loss differentiates it: `SquashedGaussianTail` is an autograd function
+whose forward is the kernel K9f and whose backward is K9b, both in
+`csrc/squashed_gaussian.cu`, with the plain versions
+`_squashed_gaussian_plain` and `_squashed_gaussian_backward_plain`.
+`SquashedGaussian.logp` and `entropy` stay plain PyTorch (no path calls
+them).
 """
 
 from __future__ import annotations
@@ -50,6 +60,20 @@ DIAG_GAUSSIAN_KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
      ctypes.c_void_p])
+
+# K9f and K9b: the squashed-Gaussian tail and its backward; see the
+# source note in csrc/squashed_gaussian.cu.
+SQUASHED_GAUSSIAN_KERNEL = CudaKernel(
+    "squashed_gaussian", "squashed_gaussian.cu", "squashed_gaussian_sample",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+     ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+SQUASHED_GAUSSIAN_BACKWARD_KERNEL = CudaKernel(
+    "squashed_gaussian_backward", "squashed_gaussian.cu",
+    "squashed_gaussian_backward",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_float, ctypes.c_void_p])
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -255,6 +279,177 @@ def gaussian_sample_logp(inputs: torch.Tensor,
         return _gaussian_sample_logp_cuda(inputs, z, explore)
 
 
+LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
+_LOG_2PI = math.log(2.0 * math.pi)
+_LOG_2 = math.log(2.0)
+
+
+def _squashed_gaussian_plain(x: torch.Tensor, z: Optional[torch.Tensor],
+                             low: float, high: float, explore: bool
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K9f: same inputs, same steps. x [B, 2d] =
+    [mean, raw log_std], z [B, d] normals (used only when exploring; the
+    deterministic action takes z = 0). Returns (actions [B, d] in [low,
+    high], logp [B]), the sum over d taken in column order as the kernel
+    takes it (`sac_policy.py:137-150` term for term)."""
+    d = x.shape[-1] // 2
+    mean, raw = x[:, :d], x[:, d:]
+    s = (high - low) / 2.0
+    log_std = raw.clamp(LOG_STD_MIN, LOG_STD_MAX)
+    if explore:
+        pre = mean + torch.exp(log_std) * z
+    else:
+        z = torch.zeros_like(mean)
+        pre = mean
+    t = torch.tanh(pre)
+    actions = low + (t + 1.0) * s
+    m = -2.0 * pre
+    softplus = torch.relu(m) + torch.log1p(torch.exp(-m.abs()))
+    terms = (-0.5 * (z * z + 2.0 * log_std + _LOG_2PI)
+             - 2.0 * (_LOG_2 - pre - softplus))
+    logp = torch.zeros_like(x[:, 0])
+    for j in range(d):
+        logp = logp + terms[:, j]
+    return actions, logp - d * math.log(s)
+
+
+def _squashed_gaussian_backward_plain(
+        x: torch.Tensor, z: Optional[torch.Tensor],
+        g_a: Optional[torch.Tensor], g_logp: Optional[torch.Tensor],
+        low: float, high: float, explore: bool) -> torch.Tensor:
+    """Plain PyTorch version of K9b: the gradient [B, 2d] of
+    sum(g_a * actions) + sum(g_logp * logp) with respect to x, from the
+    upstream gradients g_a [B, d] and g_logp [B] (None reads as zeros).
+    pre and tanh(pre) are recomputed from x and z."""
+    d = x.shape[-1] // 2
+    mean, raw = x[:, :d], x[:, d:]
+    s = (high - low) / 2.0
+    std = torch.exp(raw.clamp(LOG_STD_MIN, LOG_STD_MAX))
+    if explore:
+        pre = mean + std * z
+    else:
+        z = torch.zeros_like(mean)
+        pre = mean
+    t = torch.tanh(pre)
+    ga = g_a if g_a is not None else torch.zeros_like(mean)
+    gl = (g_logp if g_logp is not None
+          else torch.zeros_like(x[:, 0]))[:, None]
+    g_pre = ga * s * (1.0 - t * t) + gl * 2.0 * t
+    inside = (raw >= LOG_STD_MIN) & (raw <= LOG_STD_MAX)
+    g_raw = torch.where(inside, g_pre * std * z - gl, torch.zeros_like(raw))
+    return torch.cat([g_pre, g_raw], dim=-1)
+
+
+def _check_squashed_inputs(x: torch.Tensor, z: Optional[torch.Tensor],
+                           explore: bool) -> Tuple[int, int]:
+    """(B, d) of K9's [B, 2d] f32 inputs; raises on what it cannot take."""
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] % 2:
+        raise ValueError(f"squashed_gaussian kernel takes [B, 2d] float32 "
+                         f"inputs, got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("squashed_gaussian kernel takes contiguous inputs")
+    B, d = x.shape[0], x.shape[1] // 2
+    if explore:
+        if z is None or z.shape != (B, d) or z.dtype != torch.float32 \
+                or z.device != x.device or not z.is_contiguous():
+            raise ValueError(
+                f"exploring needs contiguous float32 normals of shape "
+                f"{(B, d)} on the inputs' device")
+    return B, d
+
+
+def _squashed_gaussian_cuda(x: torch.Tensor, z: Optional[torch.Tensor],
+                            low: float, high: float, explore: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K9f on [B, 2d] f32 inputs (and [B, d] f32 normals when
+    exploring). Allocates the f32 [B, d] actions and [B] logp."""
+    B, d = _check_squashed_inputs(x, z, explore)
+    s = (high - low) / 2.0
+    actions = torch.empty(B, d, dtype=torch.float32, device=x.device)
+    logp = torch.empty(B, dtype=torch.float32, device=x.device)
+    SQUASHED_GAUSSIAN_KERNEL.launch(
+        x.data_ptr(), z.data_ptr() if explore else None, actions.data_ptr(),
+        logp.data_ptr(), B, d, int(bool(explore)), low, s,
+        d * math.log(s), stream_handle(x))
+    return actions, logp
+
+
+def _squashed_gaussian_backward_cuda(
+        x: torch.Tensor, z: Optional[torch.Tensor],
+        g_a: Optional[torch.Tensor], g_logp: Optional[torch.Tensor],
+        low: float, high: float, explore: bool) -> torch.Tensor:
+    """Launch K9b: x [B, 2d], z [B, d] (when exploring), g_a [B, d] and
+    g_logp [B] (each f32 and contiguous, or None). Allocates g_x."""
+    B, d = _check_squashed_inputs(x, z, explore)
+    for g, shape in ((g_a, (B, d)), (g_logp, (B,))):
+        if g is not None and (g.shape != shape or g.dtype != torch.float32
+                              or g.device != x.device
+                              or not g.is_contiguous()):
+            raise ValueError(f"squashed_gaussian backward takes contiguous "
+                             f"float32 gradients of shape {shape} on the "
+                             "inputs' device")
+    g_x = torch.empty_like(x)
+    SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launch(
+        x.data_ptr(), z.data_ptr() if explore else None,
+        g_a.data_ptr() if g_a is not None else None,
+        g_logp.data_ptr() if g_logp is not None else None, g_x.data_ptr(),
+        B, d, int(bool(explore)), (high - low) / 2.0, stream_handle(x))
+    return g_x
+
+
+class SquashedGaussianTail(torch.autograd.Function):
+    """(actions, logp) = the squashed-Gaussian tail of x [B, 2d], with a
+    gradient to x. On CUDA tensors the forward launches K9f and the
+    backward K9b (or raises); on CPU tensors they are the two plain
+    functions. z, low, high and explore get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, z, low, high, explore):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, z)
+        ctx.args = (low, high, explore)
+        if x.device.type == "cpu":
+            return _squashed_gaussian_plain(x, z, low, high, explore)
+        if x.device.type != "cuda":
+            raise ValueError(f"no squashed_gaussian kernel for {x.device}")
+        return _squashed_gaussian_cuda(x, z, low, high, explore)
+
+    @staticmethod
+    def backward(ctx, g_a, g_logp):
+        if g_a is None and g_logp is None:
+            return None, None, None, None, None
+        x, z = ctx.saved_tensors
+        # Autograd hands over views (a column slice from the critic's
+        # concat, an expand from a mean); the kernel takes dense rows.
+        g_a = None if g_a is None else g_a.contiguous()
+        g_logp = None if g_logp is None else g_logp.contiguous()
+        if x.device.type == "cpu":
+            g_x = _squashed_gaussian_backward_plain(x, z, g_a, g_logp,
+                                                    *ctx.args)
+        else:
+            g_x = _squashed_gaussian_backward_cuda(x, z, g_a, g_logp,
+                                                   *ctx.args)
+        return g_x, None, None, None, None
+
+
+def squashed_gaussian_sample_logp(x: torch.Tensor,
+                                  z: Optional[torch.Tensor] = None,
+                                  low: float = -1.0, high: float = 1.0,
+                                  explore: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(actions f32 [B, d] in [low, high], logp f32 [B]) for the actor's
+    output x [B, 2d] = [mean, raw log_std]: tanh(mean + std * z) rescaled
+    when exploring, tanh(mean) rescaled otherwise (z is not read).
+
+    Goes through `SquashedGaussianTail`: CUDA tensors launch K9f (and
+    K9b for the gradient, when x requires one) or raise; CPU tensors take
+    the plain versions."""
+    if explore and z is None:
+        raise ValueError("exploring needs the [B, d] normals z")
+    return SquashedGaussianTail.apply(x, z if explore else None, float(low),
+                                      float(high), bool(explore))
+
+
 class Categorical:
     """inputs: logits (..., n)."""
 
@@ -350,6 +545,67 @@ class DiagGaussian:
             other.log_std - self.log_std
             + (self.std ** 2 + (self.mean - other.mean) ** 2)
             / (2.0 * other.std ** 2) - 0.5, dim=-1)
+
+    @staticmethod
+    def required_input_dim(space) -> int:
+        return 2 * int(np.prod(space.shape))
+
+
+class SquashedGaussian:
+    """inputs: concat([mean, raw log_std], -1), a tanh-squashed Gaussian
+    bounded to [low, high] (SAC policies; `distributions.py:130-176` in
+    the JAX package). `sample` and `deterministic_sample` go through the
+    squashed-Gaussian tail (K9f on the card); `logp` of a given action
+    (arctanh unsquash) and `entropy` stay plain PyTorch."""
+
+    def __init__(self, inputs: torch.Tensor, low: float = -1.0,
+                 high: float = 1.0):
+        self.inputs = inputs
+        self.mean, log_std = torch.chunk(inputs, 2, dim=-1)
+        self.log_std = log_std.clamp(LOG_STD_MIN, LOG_STD_MAX)
+        self.std = torch.exp(self.log_std)
+        self.low, self.high = low, high
+
+    def sample_with_logp(self, generator: Optional[torch.Generator] = None,
+                         explore: bool = True):
+        """Draw actions and their logp in one pass (K9f on the card), the
+        normals from `generator` on the inputs' device."""
+        lead, width = self.inputs.shape[:-1], self.inputs.shape[-1]
+        x = self.inputs.float().reshape(-1, width).contiguous()
+        z = None
+        if explore:
+            z = torch.randn((x.shape[0], width // 2), generator=generator,
+                            dtype=torch.float32, device=x.device)
+        actions, logp = squashed_gaussian_sample_logp(
+            x, z, self.low, self.high, explore)
+        return actions.reshape(self.mean.shape), logp.reshape(lead)
+
+    def sample(self, generator: Optional[torch.Generator] = None):
+        return self.sample_with_logp(generator, explore=True)[0]
+
+    def deterministic_sample(self):
+        return self.sample_with_logp(explore=False)[0]
+
+    def _unsquash(self, x):
+        y = 2.0 * (x - self.low) / (self.high - self.low) - 1.0
+        return torch.atanh(y.clamp(-1.0 + 1e-6, 1.0 - 1e-6))
+
+    def logp(self, x):
+        raw = self._unsquash(x)
+        d = self.mean.shape[-1]
+        base = (-0.5 * torch.sum(((raw - self.mean) / self.std) ** 2, dim=-1)
+                - gaussian_log_norm(d) - torch.sum(self.log_std, dim=-1))
+        # log |d squash / d raw|
+        correction = torch.sum(torch.log(
+            (1 - torch.tanh(raw) ** 2) * (self.high - self.low) / 2.0
+            + 1e-8), dim=-1)
+        return base - correction
+
+    def entropy(self):
+        # The unsquashed Gaussian's entropy, as in the JAX package.
+        d = self.mean.shape[-1]
+        return torch.sum(self.log_std, dim=-1) + \
+            0.5 * d * (1.0 + math.log(2.0 * math.pi))
 
     @staticmethod
     def required_input_dim(space) -> int:

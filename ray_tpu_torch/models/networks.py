@@ -1,10 +1,13 @@
 """Policy/value networks as `nn.Module`s.
 
 Counterpart of `ray_tpu/models/networks.py` (`FullyConnectedNetwork`,
-`VisionNetwork`, `QNetwork`); the LSTM and actor/critic networks wait
-for later slices. As there:
+`VisionNetwork`, `QNetwork`, and SAC's `StochasticActor` and
+`ContinuousQNetwork`); the LSTM network and DDPG's `DeterministicActor`
+wait for later slices. As there:
 
-- every network returns `(dist_inputs, value)` from one forward pass;
+- every policy network returns `(dist_inputs, value)` from one forward
+  pass (the actor and critic networks return what their flax modules
+  return);
 - parameters are float32 masters; the trunk computes in
   `compute_dtype` (bf16 by default for the Vision trunk), casting each
   layer's inputs and parameters at the layer, as flax's
@@ -254,3 +257,77 @@ class QNetwork(nn.Module):
         else:
             q = _linear(h, self.q, torch.float32)
         return q, q.max(dim=-1).values
+
+
+def _dense_tower(module: nn.Module, prefix: str, in_dim: int,
+                 hiddens: Sequence[int], out_dim: int,
+                 out_name: str) -> list:
+    """Add `{prefix}fc_0`, ... and the `out_name` head to `module`;
+    returns the layer names in order."""
+    names = []
+    last = in_dim
+    for i, size in enumerate(hiddens):
+        names.append(f"{prefix}fc_{i}")
+        module.add_module(names[-1], nn.Linear(last, size))
+        last = size
+    names.append(out_name)
+    module.add_module(out_name, nn.Linear(last, out_dim))
+    return names
+
+
+def _run_tower(module: nn.Module, names: Sequence[str], x: torch.Tensor,
+               activation) -> torch.Tensor:
+    for name in names[:-1]:
+        x = activation(_linear(x, getattr(module, name), torch.float32))
+    return _linear(x, getattr(module, names[-1]), torch.float32)
+
+
+class StochasticActor(nn.Module):
+    """pi(s) -> [mean, raw log_std] inputs [B, 2d] of the squashed
+    Gaussian (SAC; `networks.py:174-187` in the JAX package): `hiddens`
+    dense layers with `activation` on the flattened observation, then
+    the `out` layer, all in float32 from flax's Dense defaults."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hiddens: Sequence[int] = (256, 256),
+                 activation: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = _ACTIVATIONS[activation]
+        self.layer_names = _dense_tower(self, "", obs_dim, hiddens,
+                                        2 * action_dim, "out")
+        for name in self.layer_names:
+            _init_layer(getattr(self, name), generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        x = obs.reshape(obs.shape[0], -1).float()
+        return _run_tower(self, self.layer_names, x, self.activation)
+
+
+class ContinuousQNetwork(nn.Module):
+    """Q(s, a) (SAC's critic; `networks.py:190-214` in the JAX package):
+    one tower (`q1_fc_*`, `q1_out`) over concat(flattened obs, action),
+    and with `twin` a second, independent one (`q2_*`). Returns (q1, q2)
+    [B] each, or (q1, q1) without `twin`."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 hiddens: Sequence[int] = (256, 256),
+                 activation: str = "relu", twin: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation = _ACTIVATIONS[activation]
+        self.twin = twin
+        self.towers = [_dense_tower(self, f"{q}_", obs_dim + action_dim,
+                                    hiddens, 1, f"{q}_out")
+                       for q in (("q1", "q2") if twin else ("q1",))]
+        for names in self.towers:
+            for name in names:
+                _init_layer(getattr(self, name), generator)
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = torch.cat([obs.reshape(obs.shape[0], -1).float(),
+                       action.float()], dim=-1)
+        qs = [_run_tower(self, names, x, self.activation)[..., 0]
+              for names in self.towers]
+        return qs[0], qs[-1]

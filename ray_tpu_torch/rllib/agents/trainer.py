@@ -2,8 +2,9 @@
 
 Counterpart of `ray_tpu/rllib/agents/trainer.py` (parity:
 `rllib/agents/trainer.py:335`): extends the Tune `Trainable`, builds a
-WorkerSet in `_setup`, runs the policy optimizer per `train()` and
-exposes `compute_action`/`get_policy`/`workers`.
+WorkerSet in `_setup`, runs the policy optimizer per `train()`, runs
+evaluation episodes every `evaluation_interval` iterations
+(`_maybe_evaluate`) and exposes `compute_action`/`get_policy`/`workers`.
 
 The JAX trainer built a learner mesh from `jax.devices()`
 (`Trainer._make_mesh`); this one resolves the config's ``"device"``
@@ -14,9 +15,11 @@ learner: every rank of a `torch.distributed` world of D ranks
 global config, samples its share of the envs, learns on its share of
 each train batch and exchanges gradients (`_make_learner_group`). With
 `device_frame_stack` the probe env advertises the stacked observation
-space, and episodes of inline (Sebulba) actors join the result. Remote
-workers, worker-failure recovery, evaluation workers, checkpoints and
-the cluster-metrics push wait for the runtime port.
+space, and episodes of inline (Sebulba) actors join the result. The
+evaluation worker is one local `RolloutWorker` that acts with
+`explore=False`, synced to the learner's weights and filters before
+each evaluation. Remote workers, worker-failure recovery, checkpoints
+and the cluster-metrics push wait for the runtime port.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ...tune.trainable import Trainable
 from ..env.registry import make_env
 from ..evaluation.metrics import (collect_episodes, summarize_episodes,
                                   world_totals)
+from ..evaluation.rollout_worker import RolloutWorker
 from ..evaluation.worker_set import WorkerSet
 from ..utils.config import deep_merge
 
@@ -64,6 +68,13 @@ COMMON_CONFIG = {
     # The world's backend: "nccl" (one rank per card) or "gloo" (CPU
     # worlds, and ranks sharing one card). Must be the world's own.
     "collective_backend": "nccl",
+    # === Evaluation (parity: trainer.py:96-100 in the JAX package) ===
+    # Every this many iterations, run `evaluation_num_episodes` episodes
+    # with `explore=False` on a separate evaluation worker (None: never).
+    "evaluation_interval": None,
+    "evaluation_num_episodes": 10,
+    # Config overrides applied to the evaluation worker's policy/env.
+    "evaluation_config": {},
     # === Environment ===
     "env": None,
     "env_config": {},
@@ -145,6 +156,17 @@ class Trainer(Trainable):
         """Subclasses/templates build workers + optimizer here."""
         raise NotImplementedError
 
+    def _train(self) -> dict:
+        """One iteration, then evaluation when it is due (parity:
+        `trainer.py:195`)."""
+        result = self._train_inner()
+        self._maybe_evaluate(result)
+        return result
+
+    def _train_inner(self) -> dict:
+        """Subclasses/templates run one training iteration here."""
+        raise NotImplementedError
+
     def _make_workers(self, policy_cls) -> WorkerSet:
         return WorkerSet(
             self.env_creator, policy_cls, self.config,
@@ -176,6 +198,50 @@ class Trainer(Trainable):
         return result
 
     # ------------------------------------------------------------------
+    def _maybe_evaluate(self, result: dict) -> None:
+        interval = self.config.get("evaluation_interval")
+        if not interval:
+            return
+        self._iters_since_eval = getattr(self, "_iters_since_eval", 0) + 1
+        if self._iters_since_eval < interval:
+            return
+        self._iters_since_eval = 0
+        result["evaluation"] = self._evaluate()
+
+    def _evaluate(self) -> dict:
+        """Run `evaluation_num_episodes` episodes, not exploring, on a
+        dedicated evaluation worker (parity: `trainer.py:285-330` in the
+        JAX package): built once, with `evaluation_config` applied, on
+        this trainer's device and outside any data-parallel world; synced
+        to the learner's weights and observation filter first."""
+        if getattr(self, "_eval_worker", None) is None:
+            cfg = deep_merge(deep_merge({}, self.config),
+                             self.config.get("evaluation_config") or {})
+            cfg.pop("_learner_group", None)
+            cfg.update(num_gpus_for_learner=0, device=str(self.device))
+            self._eval_worker = RolloutWorker(
+                self.env_creator, type(self.get_policy()), cfg,
+                num_envs=cfg.get("num_envs_per_worker", 1),
+                rollout_fragment_length=cfg.get(
+                    "rollout_fragment_length", 100),
+                worker_index=0,
+                seed=cfg.get("seed"),
+                observation_filter=cfg.get(
+                    "observation_filter", "NoFilter"),
+                explore=False,
+                env_config=cfg.get("env_config"))
+        local = self.workers.local_worker
+        self._eval_worker.set_weights(local.get_weights())
+        self._eval_worker.sync_filters(local.get_filters())
+        n = self.config.get("evaluation_num_episodes", 10)
+        self._eval_worker.get_metrics()  # drain stale episodes
+        episodes = []
+        while len(episodes) < n:
+            self._eval_worker.sample()
+            episodes.extend(self._eval_worker.get_metrics())
+        return summarize_episodes(episodes)
+
+    # ------------------------------------------------------------------
     def get_policy(self):
         return self.workers.local_worker.policy
 
@@ -187,6 +253,8 @@ class Trainer(Trainable):
     def _stop(self):
         if hasattr(self, "workers"):
             self.workers.stop()
+        if getattr(self, "_eval_worker", None) is not None:
+            self._eval_worker.stop()
         opt = getattr(self, "optimizer", None)
         if opt is not None:
             opt.stop()

@@ -53,7 +53,7 @@ def build_trainer(name: str,
             if after_init:
                 after_init(self)
 
-        def _train(self):
+        def _train_inner(self):
             # Iteration pacing (parity: trainer_template.py:117-135): keep
             # stepping the optimizer until both min_iter_time_s and
             # timesteps_per_iteration are satisfied. Every rank of a

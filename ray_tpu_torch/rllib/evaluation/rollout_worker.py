@@ -2,7 +2,8 @@
 
 Counterpart of `ray_tpu/rllib/evaluation/rollout_worker.py` (parity:
 `rllib/evaluation/rollout_worker.py:55`), local and single-agent: builds
-env + policy + sampler; `sample`, `learn_on_batch`, `get/set_weights`.
+env + policy + sampler; `sample`, `get/set_weights`, `get/sync_filters`;
+`explore=False` makes a non-exploring (evaluation) worker.
 Offline I/O, remote envs, observation compression, policy maps and the
 versioned weight-sync receiver wait for later slices.
 """
@@ -33,7 +34,8 @@ class RolloutWorker:
                  observation_filter: str = "NoFilter",
                  env_config: Optional[dict] = None,
                  pack_fragments: bool = False,
-                 first_env_index: int = 0):
+                 first_env_index: int = 0,
+                 explore: bool = True):
         self.worker_index = worker_index
         env_config = dict(env_config or {})
         env_config["worker_index"] = worker_index
@@ -84,7 +86,8 @@ class RolloutWorker:
             obs_filter=self.obs_filter if observation_filter != "NoFilter"
             else None,
             preprocessor=self.preprocessor,
-            pack_fragments=pack_fragments)
+            pack_fragments=pack_fragments,
+            explore=explore)
 
     # -- sampling --------------------------------------------------------
     def sample(self) -> SampleBatch:
@@ -99,6 +102,13 @@ class RolloutWorker:
 
     def get_policy(self, policy_id: str = "default_policy"):
         return self.policy
+
+    # -- filters (parity: FilterManager.synchronize) ---------------------
+    def get_filters(self):
+        return self.obs_filter.as_serializable()
+
+    def sync_filters(self, new_filter):
+        self.obs_filter.sync(new_filter)
 
     # -- metrics / introspection -----------------------------------------
     def get_metrics(self) -> List:

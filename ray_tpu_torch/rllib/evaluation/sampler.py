@@ -6,8 +6,9 @@ Counterpart of `ray_tpu/rllib/evaluation/sampler.py` (parity:
 observations, one `compute_actions` per step (one network forward and
 one sampling-tail launch, K2 or K7, covering all envs), build per-env
 trajectories, postprocess on episode end or fragment truncation with value
-bootstrapping. Recurrent state threading, horizon truncation, ExternalEnv
-action relabeling and non-exploring rollouts wait for later slices.
+bootstrapping; `explore=False` acts without exploring (evaluation).
+Recurrent state threading, horizon truncation and ExternalEnv action
+relabeling wait for later slices.
 """
 
 from __future__ import annotations
@@ -66,8 +67,10 @@ class SyncSampler:
                  postprocess_fn: Optional[Callable] = None,
                  obs_filter: Optional[Callable] = None,
                  preprocessor=None,
-                 pack_fragments: bool = False):
+                 pack_fragments: bool = False,
+                 explore: bool = True):
         self.env = vector_env
+        self.explore = explore
         self.policy = policy
         self.T = rollout_fragment_length
         self.postprocess_fn = postprocess_fn
@@ -112,7 +115,8 @@ class SyncSampler:
         chunks: List[SampleBatch] = []
         for _ in range(self.T):
             obs = self._obs
-            actions, _, extra = self.policy.compute_actions(obs)
+            actions, _, extra = self.policy.compute_actions(
+                obs, explore=self.explore)
             next_obs, rewards, dones, _ = self.env.step(actions)
             next_obs = self._filter(self._preprocess(next_obs))
             for i in range(self.env.num_envs):

@@ -210,27 +210,7 @@ class TorchPolicy(Policy):
 
     # ------------------------------------------------------------------
     def _to_device(self, array) -> torch.Tensor:
-        """Column -> device tensor with `_device_batch`'s casts: f64 ->
-        f32 and bool -> f32 (integers and uint8 frames keep their type).
-        A tensor already on `self.device` (the Sebulba sampler's columns)
-        is cast there, never sent through the host (parity:
-        `jax_policy.py:460-474`)."""
-        if isinstance(array, torch.Tensor):
-            if array.device != self.device:
-                raise ValueError(f"column on {array.device}, policy on "
-                                 f"{self.device}")
-            if array.dtype in (torch.float64, torch.bool):
-                array = array.float()
-            return array
-        array = np.asarray(array)
-        if array.dtype == np.float64 or array.dtype == np.bool_:
-            array = array.astype(np.float32)
-        tensor = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            # From pinned memory the copy does not block the host (a
-            # pageable one waits for everything queued on the stream).
-            return tensor.pin_memory().to(self.device, non_blocking=True)
-        return tensor.to(self.device)
+        return to_device(array, self.device)
 
     # ------------------------------------------------------------------
     # rollout inference
@@ -492,6 +472,30 @@ def _tile_minibatches(batch, minibatch_size: int, seq_len: int):
     elif usable != n:
         batch = batch.slice(0, usable)
     return batch, num_mb
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """Column -> device tensor with `_device_batch`'s casts: f64 -> f32
+    and bool -> f32 (integers and uint8 frames keep their type). A
+    tensor already on `device` (the Sebulba sampler's columns) is cast
+    there, never sent through the host (parity:
+    `jax_policy.py:460-474`)."""
+    if isinstance(array, torch.Tensor):
+        if array.device != device:
+            raise ValueError(f"column on {array.device}, policy on "
+                             f"{device}")
+        if array.dtype in (torch.float64, torch.bool):
+            array = array.float()
+        return array
+    array = np.asarray(array)
+    if array.dtype == np.float64 or array.dtype == np.bool_:
+        array = array.astype(np.float32)
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        # From pinned memory the copy does not block the host (a
+        # pageable one waits for everything queued on the stream).
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
 
 
 def host_state_dict(module: torch.nn.Module) -> Dict[str, np.ndarray]:

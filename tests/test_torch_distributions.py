@@ -179,3 +179,53 @@ def test_cpu_inputs_never_touch_the_k_kernel():
     Categorical(torch.zeros(4, 3)).sample_k_with_logp(
         torch.Generator().manual_seed(0), 3)
     assert distributions.CATEGORICAL_K_KERNEL.launches == before
+
+
+# ---------------------------------------------------------------------
+# SquashedGaussian (SAC)
+# ---------------------------------------------------------------------
+def _squashed_pair(low=-2.0, high=2.0, seed=0):
+    from ray_tpu.models.distributions import SquashedGaussian as JaxSquashed
+    from ray_tpu_torch.models.distributions import SquashedGaussian
+    inputs = np.random.default_rng(seed).standard_normal((10, 4)).astype(
+        np.float32) * 3
+    return (JaxSquashed(inputs, low=low, high=high),
+            SquashedGaussian(torch.from_numpy(inputs), low=low, high=high),
+            inputs)
+
+
+def test_squashed_gaussian_bounds():
+    """`test_rllib_core.py::test_squashed_gaussian_bounds`'s check: samples
+    lie in [low, high]; with a seeded generator they repeat."""
+    _, d, _ = _squashed_pair()
+    s = d.sample(torch.Generator().manual_seed(0))
+    assert s.shape == (10, 2)
+    assert bool((s >= -2.0).all()) and bool((s <= 2.0).all())
+    assert torch.equal(s, d.sample(torch.Generator().manual_seed(0)))
+
+
+def test_squashed_gaussian_matches_jax():
+    """deterministic_sample, logp of given actions (arctanh unsquash with
+    the 1e-8 guard) and entropy against the JAX package's class."""
+    jd, d, _ = _squashed_pair(-1.0, 0.5, seed=1)
+    np.testing.assert_allclose(d.deterministic_sample().numpy(),
+                               jd.deterministic_sample(), rtol=TOL,
+                               atol=TOL)
+    actions = np.random.default_rng(2).uniform(-0.99, 0.49, (10, 2)).astype(
+        np.float32)
+    np.testing.assert_allclose(d.logp(torch.from_numpy(actions)).numpy(),
+                               jd.logp(actions), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(d.entropy().numpy(), jd.entropy(), rtol=TOL,
+                               atol=TOL)
+    sample, logp = d.sample_with_logp(torch.Generator().manual_seed(3))
+    assert sample.shape == (10, 2) and logp.shape == (10,)
+    assert distributions.SquashedGaussian.required_input_dim(
+        distributions.Box(-1.0, 1.0, (3,))) == 6
+
+
+def test_box_keeps_the_diag_gaussian():
+    """As in the JAX package, a Box maps to DiagGaussian; SAC builds its
+    squashed tail itself."""
+    from ray_tpu_torch.rllib.env.spaces import Box
+    assert distributions.get_action_dist(Box(-1.0, 1.0, (2,))) == \
+        (distributions.DiagGaussian, 4)

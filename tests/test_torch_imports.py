@@ -39,11 +39,20 @@ import ray_tpu_torch.rllib.optimizers.replay_buffer
 import ray_tpu_torch.rllib.optimizers.segment_tree
 import ray_tpu_torch.rllib.optimizers.sync_replay_optimizer
 import ray_tpu_torch.rllib.utils.schedules
+from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+import ray_tpu_torch.rllib.agents.sac
+import ray_tpu_torch.rllib.agents.sac.sac_policy
+import ray_tpu_torch.rllib.agents.registry
+from ray_tpu_torch.rllib.agents.registry import get_trainer_class
+get_trainer_class("SAC")
+from ray_tpu_torch.rllib.agents.sac import SACPolicy
+SACPolicy(Box(-1.0, 1.0, (3,)), Box(-2.0, 2.0, (1,)),
+          {"device": "cpu", "pure_exploration_steps": 0}) \
+    .compute_actions([[0.0, 0.0, 0.0]])
 from ray_tpu_torch.rllib.env import make_batched_env
 from ray_tpu_torch.rllib.env.registry import make_env
 make_env("Pendulum-v0").reset()
 from ray_tpu_torch.rllib.agents.dqn import DQNPolicy
-from ray_tpu_torch.rllib.env.spaces import Box, Discrete
 DQNPolicy(Box(-1.0, 1.0, (4,)), Discrete(2), {"device": "cpu"}) \
     .compute_actions([[0.0, 0.0, 0.0, 0.0]])
 make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
@@ -95,11 +104,22 @@ def test_dqn_without_a_card_raises(no_card):
             cls(config={"env": "CartPole-v0"})
 
 
+def test_sac_without_a_card_raises(no_card):
+    """SACTrainer and SACPolicy default to the card."""
+    from ray_tpu_torch.rllib.agents.sac import SACPolicy, SACTrainer
+    from ray_tpu_torch.rllib.env.spaces import Box
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SACTrainer(config={"env": "Pendulum-v0"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SACPolicy(Box(-1.0, 1.0, (3,)), Box(-1.0, 1.0, (1,)), {})
+
+
 _SMOKE_PROBE = """
 import sys
 import chip_smoke
 chip_smoke.port_kernels()
 import ray_tpu_torch.rllib.agents.dqn
+import ray_tpu_torch.rllib.agents.sac
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                        "ray_tpu"))

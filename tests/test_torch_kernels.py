@@ -375,6 +375,159 @@ def test_dqn_policy_on_the_card_launches_k8_and_matches_the_cpu(cuda,
     np.testing.assert_allclose(got_td, want_td, rtol=1e-4, atol=1e-4)
 
 
+def _squashed_inputs(B, d, device, seed, margin=0.0):
+    """K9 inputs: every third row's mean scaled so that |pre| >= 10 (tanh
+    saturates), raw log_std over [-25, 5) (beyond both clip bounds),
+    with `margin` kept away from the bounds (the backward's mask)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mean = torch.randn(B, d, generator=gen, device=device) * 3.0
+    mean[::3] *= 6.0
+    raw = torch.rand(B, d, generator=gen, device=device) * 30.0 - 25.0
+    if margin:
+        near = ((raw + 20.0).abs() < margin) | ((raw - 2.0).abs() < margin)
+        raw = torch.where(near, raw + 3 * margin, raw)
+    z = torch.randn(B, d, generator=gen, device=device)
+    return torch.cat([mean, raw], dim=1).contiguous(), z
+
+
+# (1, 1): SAC Pendulum's env step; (256, 1): its update; (256, 6) and
+# (4096, 17): larger boxes; (5, 40): d over a warp's 32 lanes.
+SQUASHED_SHAPES = [(1, 1), (256, 1), (256, 6), (4096, 17), (5, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d", SQUASHED_SHAPES)
+@pytest.mark.parametrize("explore", [True, False])
+@pytest.mark.parametrize("low,high", [(-2.0, 2.0), (-1.0, 0.5)])
+def test_squashed_gaussian_kernel_matches_plain(cuda, B, d, explore, low,
+                                                high):
+    x, z = _squashed_inputs(B, d, cuda, seed=B * d)
+    zz = z if explore else None
+    before = distributions.SQUASHED_GAUSSIAN_KERNEL.launches
+    actions, logp = distributions.squashed_gaussian_sample_logp(
+        x, zz, low, high, explore)
+    torch.cuda.synchronize()
+    assert distributions.SQUASHED_GAUSSIAN_KERNEL.launches == before + 1
+    want_actions, want_logp = distributions._squashed_gaussian_plain(
+        x, zz, low, high, explore)
+    assert actions.shape == (B, d) and logp.shape == (B,)
+    torch.testing.assert_close(actions, want_actions, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(logp, want_logp, rtol=TOL, atol=TOL)
+    assert bool((actions >= low).all()) and bool((actions <= high).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d", SQUASHED_SHAPES)
+@pytest.mark.parametrize("grads", ["both", "no_g_a", "no_g_logp"])
+def test_squashed_gaussian_backward_kernel_matches_plain(cuda, B, d, grads):
+    """K9b against the plain backward, raw log_std at least 1e-3 from the
+    clip bounds; and the autograd function's gradient launches K9b."""
+    x, z = _squashed_inputs(B, d, cuda, seed=B * d + 1, margin=1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g_a = None if grads == "no_g_a" else torch.randn(
+        B, d, generator=gen, device=cuda)
+    g_logp = None if grads == "no_g_logp" else torch.randn(
+        B, generator=gen, device=cuda)
+    got = distributions._squashed_gaussian_backward_cuda(
+        x, z, g_a, g_logp, -2.0, 2.0, True)
+    want = distributions._squashed_gaussian_backward_plain(
+        x, z, g_a, g_logp, -2.0, 2.0, True)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    xg = x.clone().requires_grad_(True)
+    actions, logp = distributions.squashed_gaussian_sample_logp(
+        xg, z, -2.0, 2.0)
+    before = distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches
+    loss = (actions * g_a).sum() if g_a is not None else 0.0
+    if g_logp is not None:
+        loss = loss + (logp * g_logp).sum()
+    loss.backward()
+    assert distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches \
+        == before + 1
+    torch.testing.assert_close(xg.grad, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_squashed_gaussian_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(4, 6, device=cuda)
+    z = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        distributions._squashed_gaussian_cuda(x.half(), None, -1.0, 1.0,
+                                              False)
+    with pytest.raises(ValueError, match="2d"):
+        distributions._squashed_gaussian_cuda(
+            torch.zeros(4, 5, device=cuda), None, -1.0, 1.0, False)
+    with pytest.raises(ValueError, match="normals"):
+        distributions._squashed_gaussian_cuda(
+            x, torch.zeros(4, 2, device=cuda), -1.0, 1.0, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        distributions._squashed_gaussian_cuda(
+            torch.zeros(6, 4, device=cuda).t(), None, -1.0, 1.0, False)
+    with pytest.raises(ValueError, match="gradients"):
+        distributions._squashed_gaussian_backward_cuda(
+            x, z, torch.zeros(4, 2, device=cuda), None, -1.0, 1.0, True)
+    with pytest.raises(ValueError, match="gradients"):
+        distributions._squashed_gaussian_backward_cuda(
+            x, z, None, torch.zeros(4, 3, device=cuda).t()[0], -1.0, 1.0,
+            True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twin_q", [True, False])
+def test_sac_policy_on_the_card_launches_k9_and_matches_the_cpu(cuda,
+                                                                 twin_q):
+    """Past pure exploration an env step launches K9f once; an update
+    launches K9f twice and K9b once; one learn_with_td on the card (f32,
+    TF32 off) with injected normals equals the same update on the CPU
+    (1e-4 on the stats, |td| and every parameter)."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.sac import SACPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    obs_space, act_space = Box(-8.0, 8.0, (3,)), Box(-2.0, 2.0, (2,))
+    cfg = {"actor_hiddens": [64, 64], "critic_hiddens": [64, 64],
+           "twin_q": twin_q, "pure_exploration_steps": 0, "seed": 0,
+           "initial_alpha": 0.5}
+    card = SACPolicy(obs_space, act_space, dict(cfg, device="cuda"))
+    host = SACPolicy(obs_space, act_space, dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    rng = np.random.default_rng(0)
+    n = 256
+    f, b = (distributions.SQUASHED_GAUSSIAN_KERNEL,
+            distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL)
+    k9f, k9b = f.launches, b.launches
+    actions, state, extra = card.compute_actions(
+        rng.standard_normal((16, 3)).astype(np.float32))
+    assert f.launches == k9f + 1 and b.launches == k9b
+    assert actions.shape == (16, 2) and state == [] and extra == {}
+    assert np.all(np.abs(actions) <= 2.0)
+    batch = SampleBatch({
+        sb.OBS: rng.standard_normal((n, 3)).astype(np.float32),
+        sb.NEW_OBS: rng.standard_normal((n, 3)).astype(np.float32),
+        sb.ACTIONS: rng.uniform(-2.0, 2.0, (n, 2)).astype(np.float32),
+        sb.REWARDS: rng.standard_normal(n).astype(np.float32),
+        sb.DONES: rng.random(n) < 0.2})
+    normals = (rng.standard_normal((n, 2)).astype(np.float32),
+               rng.standard_normal((n, 2)).astype(np.float32))
+    got, got_td = card.learn_with_td(batch, _normals=normals)
+    assert f.launches == k9f + 3 and b.launches == k9b + 1
+    want, want_td = host.learn_with_td(batch, _normals=normals)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(got_td, want_td, rtol=1e-4, atol=1e-4)
+    got_w, want_w = card.get_weights(), host.get_weights()
+    for part in ("online", "target"):
+        for net, value in want_w[part].items():
+            if net == "log_alpha":
+                np.testing.assert_allclose(got_w[part][net], value,
+                                           rtol=1e-4, atol=1e-4)
+                continue
+            for k, v in value.items():
+                np.testing.assert_allclose(got_w[part][net][k], v,
+                                           rtol=1e-4, atol=1e-4,
+                                           err_msg=f"{part} {net} {k}")
+
+
 def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
     """K3 inputs: delta rows with pad entries, out-of-range indices, a
     quarter of the rows replaced whole and some done rows; or a frame

@@ -209,3 +209,78 @@ def test_flax_leaves_invert_the_converter(kind):
     assert plan.leaf_sizes == [ref.size for ref in want]
     assert plan.nb * block == packed.numel()
     assert torch.equal(packed[plan.unpack_index], flat)
+
+
+# ---------------------------------------------------------------------
+# SAC's actor and critic
+# ---------------------------------------------------------------------
+def _sac_networks(twin):
+    """The JAX package's `StochasticActor` and `ContinuousQNetwork` (flax
+    params, seeds 4 and 5) and the port's with the converted weights:
+    a 5-wide observation, a 2-dim action, [32, 16] towers."""
+    from ray_tpu.models.networks import ContinuousQNetwork as JaxQ
+    from ray_tpu.models.networks import StochasticActor as JaxActor
+    from ray_tpu_torch.models.networks import (ContinuousQNetwork,
+                                               StochasticActor)
+    obs = np.random.default_rng(6).standard_normal((7, 5)).astype(np.float32)
+    act = np.random.default_rng(7).uniform(-1, 1, (7, 2)).astype(np.float32)
+    jax_actor = JaxActor(action_dim=2, hiddens=(32, 16))
+    jax_critic = JaxQ(hiddens=(32, 16), twin=twin)
+    actor_params = jax.tree.map(np.asarray, jax_actor.init(
+        jax.random.PRNGKey(4), obs[:1]))
+    critic_params = jax.tree.map(np.asarray, jax_critic.init(
+        jax.random.PRNGKey(5), obs[:1], act[:1]))
+    actor = StochasticActor(5, 2, hiddens=(32, 16))
+    critic = ContinuousQNetwork(5, 2, hiddens=(32, 16), twin=twin)
+    actor.load_state_dict(flax_to_state_dict(actor_params))
+    critic.load_state_dict(flax_to_state_dict(critic_params))
+    return ((jax_actor, actor_params, actor),
+            (jax_critic, critic_params, critic), obs, act)
+
+
+@pytest.mark.parametrize("twin", [True, False], ids=["twin", "single"])
+def test_sac_networks_match_flax(twin):
+    """The actor's [mean, log_std] outputs and the critic's (q1, q2) on
+    converted weights, f32, within F32_TOL; without `twin` the critic
+    has one tower and returns it twice."""
+    (jax_actor, a_params, actor), (jax_critic, c_params, critic), obs, act \
+        = _sac_networks(twin)
+    with torch.no_grad():
+        out = actor(torch.from_numpy(obs)).numpy()
+        q1, q2 = (q.numpy() for q in critic(torch.from_numpy(obs),
+                                             torch.from_numpy(act)))
+    assert out.shape == (7, 4) and q1.shape == (7,)
+    np.testing.assert_allclose(out, jax_actor.apply(a_params, obs),
+                               rtol=F32_TOL, atol=F32_TOL)
+    want_q1, want_q2 = jax_critic.apply(c_params, obs, act)
+    np.testing.assert_allclose(q1, want_q1, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(q2, want_q2, rtol=F32_TOL, atol=F32_TOL)
+    towers = {n.split("_")[0] for n, _ in critic.named_children()}
+    assert towers == ({"q1", "q2"} if twin else {"q1"})
+    if not twin:
+        np.testing.assert_array_equal(q1, q2)
+
+
+@pytest.mark.parametrize("twin", [True, False], ids=["twin", "single"])
+def test_sac_converter_round_trip(twin):
+    """flax -> port -> flax gives the flax trees back exactly (the
+    `Linear` transpose only), for the networks and for the SAC policy's
+    weights layout with `log_alpha` and the target critic."""
+    from ray_tpu_torch.models.convert import (sac_weights_from_flax,
+                                              sac_weights_to_flax,
+                                              state_dict_to_flax)
+    (_, a_params, actor), (_, c_params, critic), _, _ = _sac_networks(twin)
+    for params, model in ((a_params, actor), (c_params, critic)):
+        back = state_dict_to_flax(model.state_dict())
+        assert jax.tree.structure(back) == jax.tree.structure(params)
+        for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+            np.testing.assert_array_equal(x, y)
+    weights = {"online": {"actor": a_params, "critic": c_params,
+                          "log_alpha": np.float32(-0.25)},
+               "target": {"critic": c_params}}
+    port = sac_weights_from_flax(weights)
+    assert set(port["online"]["critic"]) == set(critic.state_dict())
+    back = sac_weights_to_flax(port)
+    assert jax.tree.structure(back) == jax.tree.structure(weights)
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(weights)):
+        np.testing.assert_array_equal(x, y)
