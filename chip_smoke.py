@@ -18,7 +18,11 @@ falls back to the CPU):
    per call of kernel and plain version (CUDA events over many calls
    after warm-up), plus the kernel's device-only time (profiler). The
    k-step sampling kernel at k=1 is also held equal to the single-step
-   one.
+   one, and its int32 wire actions in pinned host memory equal to its
+   device actions; the observation kernel is also held through the
+   Sebulba sampler's own launch path (`GroupObsApply`) and timed at
+   n=32 and at bench.py's n=192, besides n=1 and 7 (its pixel-chunk
+   grid with a ragged last chunk) and 512.
 3. Local-mode trainer: `IMPALATrainer(config=...).train()` on
    SyntheticAtari-v0 (84x84x4 uint8 frames, 6 actions) with the
    full-width Nature CNN (bf16 trunk), 32 envs x 50-step fragments,
@@ -148,6 +152,8 @@ TRAIN_ITERS = 4  # timed iterations; one more runs under the profiler
 
 # The Sebulba path: bench.py's host-env Sebulba legs cut to 2 actors.
 SEB_ACTORS, SEB_ENVS, SEB_FRAGMENT, SEB_GROUPS = 2, 64, 25, 2
+# bench.py's own Sebulba actors: 384 envs in 2 groups (bench.py:607-612).
+BENCH_SEB_GROUP_ENVS = 384 // 2
 SEB_ITER_S = 2.0      # min_iter_time_s of each Sebulba iteration
 SEB_ITERS = {1: 4, 5: 2}  # iterations per k (the first is warm-up)
 
@@ -559,7 +565,9 @@ def obs_apply_bytes(frames, args):
 
 def check_obs_apply(n, K, S, mode, timed):
     """K3 against its plain version: the observation and the updated
-    frames must be equal bit for bit."""
+    frames must be equal bit for bit, through `apply_obs` and through
+    the sampler's launch path (`GroupObsApply`). Timed: `ms` per call
+    through the sampler's path, `apply_ms` through `apply_obs`."""
     import torch
     from ray_tpu_torch.rllib.evaluation import device_sampler as ds
     frames, args = obs_apply_inputs(n, K, S, mode, seed=n + K + S)
@@ -573,36 +581,69 @@ def check_obs_apply(n, K, S, mode, timed):
             f"obs_apply kernel disagrees with plain at n={n} K={K} S={S} "
             f"{mode}: {int((got != want).sum())} obs bytes, "
             f"{int((f_kernel != f_plain).sum())} frame bytes differ")
+    stack = args.pop("stack", None)
+    f_group = frames.clone()
+    group = ds.GroupObsApply(torch.device("cuda"), n, shape, stack,
+                             f_group if mode == "delta" else None)
+    got = group(f_group, stack, **args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(f_group, f_plain)):
+        raise AssertionError(
+            f"obs_apply kernel through GroupObsApply disagrees with plain "
+            f"at n={n} K={K} S={S} {mode}")
+    if stack is not None:
+        args["stack"] = stack
+    chunks, chunk_px = ds.obs_apply_plan(n, frames.numel() // n)
     row = {"n": n, "K": K, "S": S, "mode": mode, "max_abs_err": 0,
-           "bytes": obs_apply_bytes(frames, args)}
+           "bytes": obs_apply_bytes(frames, args), "blocks": n * chunks,
+           "chunk_px": chunk_px}
     if timed:
-        row["ms"] = time_call(
+        row["ms"] = time_call(lambda: group(f_group, stack, **{
+            k: v for k, v in args.items() if k != "stack"}), reps=2000)
+        row["apply_ms"] = time_call(
             lambda: ds.apply_obs(f_kernel, shape, **args), reps=2000)
         row["plain_ms"] = time_call(
             lambda: ds._apply_obs_plain(f_plain, shape, **args), reps=500)
         row["device_ms"] = device_ms(
             lambda: ds.apply_obs(f_kernel, shape, **args),
             "obs_apply_kernel")
-    log(f"  obs_apply n={n} K={K} S={S} {mode}: equal bit for bit"
-        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        row["bound_ms"] = bound_ms(row["bytes"], 0)[0]
+    log(f"  obs_apply n={n} K={K} S={S} {mode}: equal bit for bit "
+        f"({n * chunks} blocks of {chunk_px} pixels)"
+        + (f", kernel {row['ms']:.5f} ms per call through the sampler's "
+           f"path ({row['apply_ms']:.5f} through apply_obs), plain "
+           f"{row['plain_ms']:.5f} ms (kernel device-only "
+           f"{row['device_ms']} ms, bound {row['bound_ms']:.3e} ms)"
+           if timed else ""))
     return row
 
 
 def check_categorical_k(k, N, A, timed):
     """K2k against its plain version (actions equal, logp within
-    LOGP_TOL), and at k=1 against K2 (both outputs equal bit for bit)."""
+    LOGP_TOL), its int32 wire actions in pinned host memory equal to
+    its device actions, and at k=1 against K2 (both outputs equal bit
+    for bit). Timed: `ms` per call with the wire output (the sampler's
+    form), `bare_ms` without it."""
     import torch
     from ray_tpu_torch.models import distributions
     g = torch.Generator(device="cuda").manual_seed(k * N * A)
     logits = torch.randn(N, A, generator=g, device="cuda") * 3.0
     u = torch.rand(k, N, A, generator=g, device="cuda")
+    host = torch.full((k, N), -1, dtype=torch.int32, pin_memory=True)
     err = 0.0
     for explore in (True, False):
         uu = u if explore else None
-        actions, logp = distributions.sample_logp_k(logits, uu, explore, k)
+        actions, logp = distributions.sample_logp_k(logits, uu, explore, k,
+                                                    host_actions=host)
+        event = torch.cuda.Event()
+        event.record()
         want_a, want_logp = distributions._sample_logp_k_plain(
             logits, uu, k, explore)
+        event.synchronize()
+        if not torch.equal(host.long(), actions.cpu()):
+            raise AssertionError(
+                f"categorical_k wire actions differ from its device "
+                f"actions at k={k} N={N} A={A} explore={explore}")
         torch.cuda.synchronize()
         if not torch.equal(actions, want_a):
             raise AssertionError(
@@ -624,20 +665,37 @@ def check_categorical_k(k, N, A, timed):
     row = {"k": k, "N": N, "A": A, "max_abs_err": err}
     if timed:
         row["ms"] = time_call(
+            lambda: distributions.sample_logp_k(logits, u, True, k,
+                                                host_actions=host),
+            reps=2000)
+        row["bare_ms"] = time_call(
             lambda: distributions.sample_logp_k(logits, u, True, k),
             reps=2000)
         row["plain_ms"] = time_call(
             lambda: distributions._sample_logp_k_plain(logits, u, k, True),
             reps=500)
         row["device_ms"] = device_ms(
-            lambda: distributions.sample_logp_k(logits, u, True, k),
+            lambda: distributions.sample_logp_k(logits, u, True, k,
+                                                host_actions=host),
             "categorical_sample_k_kernel")
-    log(f"  categorical_k k={k} N={N} A={A}: actions equal, logp "
-        f"max_abs_err={err:.3e} (tol {LOGP_TOL})"
+        row["bound_ms"] = bound_ms(*categorical_k_bytes_ops(k, N, A))[0]
+    log(f"  categorical_k k={k} N={N} A={A}: actions equal, wire actions "
+        f"equal, logp max_abs_err={err:.3e} (tol {LOGP_TOL})"
         + (", equal to categorical at k=1" if k == 1 else "")
-        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        + (f", kernel {row['ms']:.5f} ms per call with the wire output "
+           f"({row['bare_ms']:.5f} without), plain {row['plain_ms']:.5f} "
+           f"ms (kernel device-only {row['device_ms']} ms, bound "
+           f"{row['bound_ms']:.3e} ms)" if timed else ""))
     return row
+
+
+def categorical_k_bytes_ops(k, N, A):
+    """K2k's bytes and f32 operations for one exploring call: logits
+    read once, uniforms read once, int64 actions, f32 logp and int32
+    wire actions written once; ~9 operations per draw element (the
+    Gumbel noise, the max and the exp-sum) and 3 per draw."""
+    return (4 * N * A + 4 * k * N * A + (8 + 4 + 4) * k * N,
+            9 * k * N * A + 3 * k * N)
 
 
 GAUSSIAN_TOL = 1e-6  # |kernel - plain| <= TOL + TOL * |plain|
@@ -1146,8 +1204,8 @@ def time_sampler_dispatch(sampler):
     """Wrap one sampler's two dispatch methods with host-clock timers
     (this script's instrumentation, not the port's): the time its actor
     spends enqueueing the obs apply (upload + K3) and the selection
-    window (forward + K2k + the action copy). Returns the dict the
-    timers add to."""
+    window (forward + K2k, which writes the wire actions to the host).
+    Returns the dict the timers add to."""
     acc = {"t_apply_s": 0.0, "t_select_s": 0.0}
     for key, name in (("t_apply_s", "_dispatch_apply"),
                       ("t_select_s", "_dispatch_select")):
@@ -2560,18 +2618,27 @@ def main():
     k2_bound = bound_ms(4 * (2 * B * A) + 8 * B + 4 * B, 9 * B * A + 3 * B)
     # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
     # stack 4) in every mode, then at a larger shape.
+    # n=192 is bench.py's 384 envs per actor in 2 groups; n=1 and 7 run
+    # the (row, pixel-chunk) grid with 28 chunks per row, the last ragged.
     n_group = SEB_ENVS // SEB_GROUPS
     k3 = check_obs_apply(n_group, 128, 4, "delta", timed=True)
+    check_obs_apply(BENCH_SEB_GROUP_ENVS, 128, 4, "delta", timed=True)
     check_obs_apply(n_group, 0, 4, "frame", timed=False)
     check_obs_apply(n_group, 128, 0, "delta", timed=False)
     check_obs_apply(512, 1024, 4, "delta", timed=False)
+    check_obs_apply(1, 128, 4, "delta", timed=False)
+    check_obs_apply(7, 128, 4, "delta", timed=False)
     # K3 moves bytes and does no arithmetic of a type in the peak table.
     k3_bound = bound_ms(k3["bytes"], 0)
     k2k = check_categorical_k(1, n_group, A, timed=True)
     check_categorical_k(5, n_group, A, timed=True)
     check_categorical_k(8, 4096, 18, timed=False)
-    k2k_bound = bound_ms(4 * n_group * A + 4 * n_group * A + 12 * n_group,
-                         9 * n_group * A + 3 * n_group)
+    k2k_bound = bound_ms(*categorical_k_bytes_ops(1, n_group, A))
+    probe = torch.zeros(1, device="cuda")
+    if cuda_build.stream_handle(probe) \
+            != torch.cuda.current_stream().cuda_stream:
+        raise AssertionError("stream_handle is not PyTorch's current "
+                             "stream")
     # K5a at the Anakin shape (4096 envs) and at 37; K5b at the CartPole
     # Anakin shape (32 envs), at 37 and at 4096. K5a moves bytes and does
     # integer work (Philox) of no type in the peak table; K5b's ~40 f32

@@ -1,0 +1,231 @@
+#!/usr/bin/env python3
+"""Time the Sebulba actor's two kernels, K3 (obs apply) and K2k (k-step
+categorical), of several trees of this repository on one card, in turns.
+
+    python3 kernel_ab.py [--out FILE] OLD NEW NEW OLD   # each a checkout's root
+
+Each TREE runs in a process of its own, in the order given, with its
+own `ray_tpu_torch` first on the path (its kernels built from its own
+`csrc/` into its own `_build/`); the measuring code is this file's and
+this directory's `chip_smoke.py`, the same for every tree. Per tree:
+
+- K3 at n=32 (the Sebulba cell's group) and n=192 (bench.py's 384 envs
+  per actor in 2 groups), K=128, S=4, a quarter of the rows replaced,
+  a tenth done: held bit for bit against the tree's plain version; the
+  kernel's device time (torch.profiler), the time per call (CUDA events
+  over back-to-back calls) through `apply_obs` and through the
+  sampler's own launch path (`GroupObsApply` where the tree has it,
+  else `apply_obs`), the plain version's, and the bound.
+- K2k at k=1 and 5 (N=32, A=6): actions held against the plain
+  version; device time, time per call of the bare wrapper, and of the
+  window's tail as the tree's sampler runs it (with the pinned wire
+  output where the tree has it; else the int32 cast, a pinned buffer
+  and the device-to-host copy), with the device operations that tail
+  enqueues (profiler kernels and copies per call) and their device
+  time, K2k's own device time in that tail, plain and bound.
+- Phase 4 of `chip_smoke.py` (the Sebulba trainer at k=1 and k=5):
+  env steps/s and the actors' wall split (`apply_pct`, `select_pct`).
+
+Prints one JSON line per tree run (`{"tree": ..., ...}`), writes them
+all to FILE as a JSON list when `--out` is given, then prints the
+card's name and power limit. Needs a CUDA device; imports no JAX.
+"""
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+K3_SHAPES = (32, 192)
+K2K_STEPS = (1, 5)
+
+
+def k2k_window_tail(distributions, logits, u, k, host):
+    """One window's K2k part as the tree's sampler enqueues it; returns a
+    callable. `host` is None for a tree without the wire output."""
+    import torch
+    if host is not None:
+        def tail():
+            distributions.sample_logp_k(logits, u, True, k,
+                                        host_actions=host)
+            torch.cuda.Event().record()
+    else:
+        def tail():
+            actions, _ = distributions.sample_logp_k(logits, u, True, k)
+            actions = actions.to(torch.int32)
+            buf = torch.empty(actions.shape, dtype=torch.int32,
+                              pin_memory=True)
+            buf.copy_(actions, non_blocking=True)
+            torch.cuda.Event().record()
+    return tail
+
+
+def device_work_per_call(fn, reps=100):
+    """(CUDA kernels and copies, their device milliseconds) that one
+    call of `fn` enqueues (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              and e.self_device_time_total > 0]
+    return (sum(e.count for e in events) / reps,
+            sum(e.self_device_time_total for e in events) / 1e3 / reps)
+
+
+def load_chip_smoke():
+    """This directory's `chip_smoke.py`, whatever tree is first on the
+    path (a tree may hold a `chip_smoke.py` of its own)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def measure(tree):
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    import ray_tpu_torch
+    pkg = os.path.dirname(os.path.abspath(ray_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(tree):
+        raise AssertionError(f"imported {pkg}, not the tree {tree}")
+    cs = load_chip_smoke()
+    from ray_tpu_torch._private import cuda_build
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import vtrace
+    from ray_tpu_torch.rllib.evaluation import device_sampler as ds
+
+    t0 = time.perf_counter()
+    cuda_build.build_all([vtrace.VTRACE_KERNEL,
+                          distributions.CATEGORICAL_KERNEL,
+                          distributions.CATEGORICAL_K_KERNEL,
+                          ds.OBS_APPLY_KERNEL])
+    out = {"tree": tree, "package": pkg,
+           "build_s": time.perf_counter() - t0, "k3": {}, "k2k": {}}
+
+    for n in K3_SHAPES:
+        frames, args = cs.obs_apply_inputs(n, 128, 4, "delta", seed=n + 132)
+        shape = args.pop("frame_shape")
+        f_kernel, f_plain = frames.clone(), frames.clone()
+        got = ds.apply_obs(f_kernel, shape, **args)
+        want = ds._apply_obs_plain(f_plain, shape, **args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(f_kernel, f_plain)):
+            raise AssertionError(f"K3 differs from plain at n={n}")
+        row = {"bytes": cs.obs_apply_bytes(frames, args)}
+        row["bound_ms"] = cs.bound_ms(row["bytes"], 0)[0]
+        apply = lambda: ds.apply_obs(f_kernel, shape, **args)
+        path = apply
+        if hasattr(ds, "GroupObsApply"):
+            stack = args["stack"]
+            rest = {k: v for k, v in args.items() if k != "stack"}
+            group = ds.GroupObsApply(torch.device("cuda"), n, shape, stack,
+                                     f_kernel)
+            path = lambda: group(f_kernel, stack, **rest)
+            row["blocks"] = n * ds.obs_apply_plan(n, frames.numel() // n)[0]
+        else:
+            row["blocks"] = n
+        row["device_ms"] = cs.device_ms(apply, "obs_apply_kernel")
+        row["apply_ms"] = cs.time_call(apply, reps=2000)
+        row["path_ms"] = cs.time_call(path, reps=2000)
+        row["plain_ms"] = cs.time_call(
+            lambda: ds._apply_obs_plain(f_plain, shape, **args), reps=500)
+        out["k3"][n] = row
+
+    wire = "host_actions" in inspect.signature(
+        distributions.sample_logp_k).parameters
+    N, A = 32, 6
+    for k in K2K_STEPS:
+        g = torch.Generator(device="cuda").manual_seed(k * N * A)
+        logits = torch.randn(N, A, generator=g, device="cuda") * 3.0
+        u = torch.rand(k, N, A, generator=g, device="cuda")
+        actions, _ = distributions.sample_logp_k(logits, u, True, k)
+        want, _ = distributions._sample_logp_k_plain(logits, u, k, True)
+        torch.cuda.synchronize()
+        if not torch.equal(actions, want):
+            raise AssertionError(f"K2k differs from plain at k={k}")
+        host = torch.empty((k, N), dtype=torch.int32, pin_memory=True) \
+            if wire else None
+        tail = k2k_window_tail(distributions, logits, u, k, host)
+        bare = lambda: distributions.sample_logp_k(
+            logits, u, True, k)
+        nbytes, ops = cs.categorical_k_bytes_ops(k, N, A)
+        tail_ops, tail_device_ms = device_work_per_call(tail)
+        out["k2k"][k] = {
+            "wire_output": wire,
+            "device_ms": cs.device_ms(bare, "categorical_sample_k_kernel"),
+            "tail_kernel_device_ms": cs.device_ms(
+                tail, "categorical_sample_k_kernel"),
+            "bare_ms": cs.time_call(bare, reps=2000),
+            "tail_ms": cs.time_call(tail, reps=2000),
+            "tail_device_ops": tail_ops,
+            "tail_device_ms": tail_device_ms,
+            "plain_ms": cs.time_call(
+                lambda: distributions._sample_logp_k_plain(
+                    logits, u, k, True), reps=500),
+            "bound_ms": cs.bound_ms(nbytes, ops)[0],
+        }
+
+    out["phase4"] = {}
+    for k in (1, 5):
+        summary, _ = cs.run_sebulba(k)
+        summary.pop("profiled_iteration", None)
+        out["phase4"][k] = {
+            "env_steps_per_s_steady": summary["env_steps_per_s_steady"],
+            "iter_s": summary["iter_s"],
+            **summary["transfer_steady"]}
+    return out
+
+
+def main(argv):
+    if argv[:1] == ["--one"]:
+        import torch
+        if not torch.cuda.is_available():
+            print("kernel_ab: no CUDA device", file=sys.stderr)
+            return 2
+        print(json.dumps(measure(argv[1])), flush=True)
+        return 0
+    out_path = None
+    if argv[:1] == ["--out"]:
+        out_path, argv = argv[1], argv[2:]
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    runs = []
+    for tree in argv:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", tree],
+            capture_output=True, text=True, cwd=HERE, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:])
+            raise SystemExit(f"kernel_ab: {tree} failed "
+                             f"(exit {proc.returncode})")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        run["wall_s"] = time.perf_counter() - t0
+        runs.append(run)
+        print(json.dumps(run), flush=True)
+    if out_path is not None:
+        with open(out_path, "w") as f:
+            json.dump(runs, f, indent=1)
+    print(load_chip_smoke().card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

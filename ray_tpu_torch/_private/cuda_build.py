@@ -167,8 +167,19 @@ def build_all(kernels: Iterable[CudaKernel], verbose: bool = False
                 for k, p in procs.values()}
 
 
+def device_stream_handle(index: int) -> int:
+    """The raw `cudaStream_t` of PyTorch's current stream on CUDA device
+    `index`, as a Python int for ctypes. PyTorch's CUDA builds answer
+    this in one call (`_cuda_getCurrentRawStream`, what its own compiled
+    kernels launch on); without it, through a `torch.cuda.Stream`."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def stream_handle(tensor) -> int:
     """The raw `cudaStream_t` of PyTorch's current stream on the
     tensor's device, as a Python int for ctypes."""
-    import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return device_stream_handle(tensor.get_device())

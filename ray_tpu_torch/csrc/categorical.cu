@@ -33,6 +33,15 @@
 // uniforms make it a bytes-bound kernel (~0.7 us at 3.35 TB/s). The
 // logits row is re-read by each of the k warps and stays in L1/L2. Its
 // plain version is `_sample_logp_k_plain`.
+//
+// The wire actions: the sampler ships every window's actions to the host
+// as int32 [k, N]. Given a pinned host buffer, lane 0 of each warp also
+// writes its action there, as int32, through the buffer's device-mapped
+// address (`cudaHostGetDevicePointer`, resolved per call; a buffer the
+// card cannot see makes the call fail before any launch). That replaces
+// an int64->int32 cast kernel and a device->host copy per window: the
+// writes (4 bytes per draw over PCIe) are complete and visible to the
+// host once an event recorded after the launch has completed.
 
 #include <cfloat>
 #include <cmath>
@@ -52,7 +61,8 @@ __device__ __forceinline__ void sample_row(const float* __restrict__ l,
                                            const float* __restrict__ ur,
                                            int A, int explore, int lane,
                                            int64_t* __restrict__ action,
-                                           float* __restrict__ logp) {
+                                           float* __restrict__ logp,
+                                           int32_t* __restrict__ wire) {
   float best = -INFINITY;
   int best_j = A;  // larger than any real index: loses every tie
   float m = -INFINITY;
@@ -88,6 +98,7 @@ __device__ __forceinline__ void sample_row(const float* __restrict__ l,
   if (lane == 0) {
     *action = best_j;
     *logp = (l[best_j] - m) - logf(s);
+    if (wire != nullptr) *wire = best_j;
   }
 }
 
@@ -101,17 +112,20 @@ __global__ void categorical_sample_kernel(const float* __restrict__ logits,
   if (row >= B) return;  // whole warps leave together
   sample_row(logits + static_cast<size_t>(row) * A,
              explore ? u + static_cast<size_t>(row) * A : nullptr, A,
-             explore, lane, actions + row, logp + row);
+             explore, lane, actions + row, logp + row, nullptr);
 }
 
 // k draws per row from one distribution (the Sebulba selection window):
 // output row r = j * N + n reads logits[n] and uniforms u[j, n]; one warp
-// per output row, as above.
+// per output row, as above. `wire` (device-mapped host memory, or null)
+// gets the int32 copy of each action.
 __global__ void categorical_sample_k_kernel(const float* __restrict__ logits,
                                             const float* __restrict__ u,
                                             int64_t* __restrict__ actions,
-                                            float* __restrict__ logp, int k,
-                                            int N, int A, int explore) {
+                                            float* __restrict__ logp,
+                                            int32_t* __restrict__ wire,
+                                            int k, int N, int A,
+                                            int explore) {
   const int lane = threadIdx.x % kWarp;
   const long long r =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
@@ -119,7 +133,8 @@ __global__ void categorical_sample_k_kernel(const float* __restrict__ logits,
   const int n = static_cast<int>(r % N);
   sample_row(logits + static_cast<size_t>(n) * A,
              explore ? u + static_cast<size_t>(r) * A : nullptr, A, explore,
-             lane, actions + r, logp + r);
+             lane, actions + r, logp + r,
+             wire != nullptr ? wire + r : nullptr);
 }
 
 }  // namespace
@@ -135,17 +150,32 @@ extern "C" int categorical_sample(const float* logits, const float* u,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `host_actions`: null, or a pinned (page-locked) host buffer of k * N
+// int32 that the kernel fills beside `actions`.
 extern "C" int categorical_sample_k(const float* logits, const float* u,
-                                    int64_t* actions, float* logp, int k,
-                                    int N, int A, int explore, void* stream) {
+                                    int64_t* actions, float* logp,
+                                    int32_t* host_actions, int k, int N,
+                                    int A, int explore, void* stream) {
   const long long rows = static_cast<long long>(k) * N;
   if (rows <= 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int32_t* wire = nullptr;
+  if (host_actions != nullptr) {
+    void* mapped = nullptr;
+    const cudaError_t err = cudaHostGetDevicePointer(&mapped, host_actions, 0);
+    if (err != cudaSuccess) {
+      // Not sticky, but it is the runtime's last error now: clear it, or
+      // the next launch of this library reports it as its own.
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    wire = static_cast<int32_t*>(mapped);
+  }
   categorical_sample_k_kernel<<<static_cast<unsigned>(blocks),
                                 kRowsPerBlock * kWarp, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-      logits, u, actions, logp, k, N, A, explore);
+      logits, u, actions, logp, wire, k, N, A, explore);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,7 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .._private.cuda_build import CudaKernel, stream_handle
+from .._private.cuda_build import (CudaKernel, device_stream_handle,
+                                   stream_handle)
 from ..rllib.env.spaces import Box, Discrete
 
 # K2: one warp per row; see the source note in csrc/categorical.cu.
@@ -47,12 +48,13 @@ CATEGORICAL_KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
-# K2k: the k-step form, one warp per (draw, row); same source note.
+# K2k: the k-step form, one warp per (draw, row), with the optional
+# int32 wire actions in pinned host memory; same source note.
 CATEGORICAL_K_KERNEL = CudaKernel(
     "categorical_k", "categorical.cu", "categorical_sample_k",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p])
 
 # K7: one warp per row; see the source note in csrc/diag_gaussian.cu.
 DIAG_GAUSSIAN_KERNEL = CudaKernel(
@@ -150,11 +152,24 @@ def _sample_logp_k_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
     return _sample_logp_plain(lead, u, explore)
 
 
+def _check_host_actions(host_actions: torch.Tensor, k: int, N: int) -> None:
+    if host_actions.dtype != torch.int32 or host_actions.is_cuda \
+            or host_actions.shape != (k, N) \
+            or not host_actions.is_contiguous():
+        raise ValueError(
+            f"host_actions must be a contiguous int32 [{k}, {N}] host "
+            f"tensor, got {tuple(host_actions.shape)} {host_actions.dtype} "
+            f"on {host_actions.device}")
+
+
 def _sample_logp_k_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
-                        k: int, explore: bool
+                        k: int, explore: bool,
+                        host_actions: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2k on [N, A] f32 logits (and [k, N, A] f32 uniforms when
-    exploring). Allocates the int64 [k, N] actions and f32 [k, N] logp."""
+    exploring). Allocates the int64 [k, N] actions and f32 [k, N] logp;
+    `host_actions`, a pinned int32 [k, N] host tensor, also receives the
+    actions (the launch raises if the card cannot write it)."""
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError(f"categorical_k kernel takes [N, A] float32 "
                          f"logits, got {tuple(logits.shape)} {logits.dtype}")
@@ -163,45 +178,57 @@ def _sample_logp_k_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
     if k < 1:
         raise ValueError(f"categorical_k kernel: k={k} < 1")
     N, A = logits.shape
+    index = logits.get_device()
     if explore:
         if u is None or u.shape != (k, N, A) \
-                or u.dtype != torch.float32 or u.device != logits.device:
+                or u.dtype != torch.float32 or u.get_device() != index:
             raise ValueError(
                 f"exploring needs float32 uniforms of shape {(k, N, A)} "
                 "on the logits' device")
         if not u.is_contiguous():
             raise ValueError("categorical_k kernel takes contiguous "
                              "uniforms")
-    actions = torch.empty(k, N, dtype=torch.int64, device=logits.device)
-    logp = torch.empty(k, N, dtype=torch.float32, device=logits.device)
+    if host_actions is not None:
+        _check_host_actions(host_actions, k, N)
+    actions = torch.empty((k, N), dtype=torch.int64, device=logits.device)
+    logp = torch.empty((k, N), dtype=torch.float32, device=logits.device)
     CATEGORICAL_K_KERNEL.launch(
         logits.data_ptr(), u.data_ptr() if explore else None,
-        actions.data_ptr(), logp.data_ptr(), k, N, A, int(bool(explore)),
-        stream_handle(logits))
+        actions.data_ptr(), logp.data_ptr(),
+        host_actions.data_ptr() if host_actions is not None else None, k, N,
+        A, 1 if explore else 0, device_stream_handle(index))
     return actions, logp
 
 
 def sample_logp_k(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
-                  explore: bool = True, k: Optional[int] = None
+                  explore: bool = True, k: Optional[int] = None,
+                  host_actions: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(actions int64 [k, N], logp f32 [k, N]): k draws from each row of
     the [N, A] logits, draw j with the uniforms u[j] of u [k, N, A].
     Without uniforms (`explore=False`) every draw is the argmax and `k`
-    must be given.
+    must be given. `host_actions`, an int32 [k, N] host tensor (pinned
+    for CUDA logits), receives the same actions: written by the kernel
+    on the card (complete once an event recorded after this call has
+    completed), copied in on the CPU.
 
     CUDA tensors launch the K2k kernel (or raise); CPU tensors take the
-    plain version."""
+    plain version. No gradient flows: sampling has none."""
     if k is None:
         if u is None:
             raise ValueError("sample_logp_k needs k or the [k, N, A] "
                              "uniforms")
         k = u.shape[0]
+    if logits.is_cuda:
+        return _sample_logp_k_cuda(logits, u, k, explore, host_actions)
+    if not logits.is_cpu:
+        raise ValueError(f"no categorical_k kernel for {logits.device}")
     with torch.no_grad():
-        if logits.device.type == "cpu":
-            return _sample_logp_k_plain(logits, u, k, explore)
-        if logits.device.type != "cuda":
-            raise ValueError(f"no categorical_k kernel for {logits.device}")
-        return _sample_logp_k_cuda(logits, u, k, explore)
+        actions, logp = _sample_logp_k_plain(logits, u, k, explore)
+    if host_actions is not None:
+        _check_host_actions(host_actions, k, logits.shape[0])
+        host_actions.copy_(actions)
+    return actions, logp
 
 
 def gaussian_log_norm(d: int) -> float:
@@ -468,17 +495,22 @@ class Categorical:
                            explore)
 
     def sample_k_with_logp(self, generator: Optional[torch.Generator],
-                           k: int, explore: bool = True):
+                           k: int, explore: bool = True,
+                           host_actions: Optional[torch.Tensor] = None):
         """k draws per row of [N, A] logits and their logp, each [k, N]
         (K2k on the card): the Sebulba selection window. Draw j uses its
-        own uniforms from `generator`, so the k draws are independent."""
+        own uniforms from `generator`, so the k draws are independent.
+        `host_actions` (int32 [k, N], pinned for CUDA logits) also gets
+        the actions; see `sample_logp_k`."""
+        logits = self.inputs
+        if logits.dtype != torch.float32 or not logits.is_contiguous():
+            logits = logits.float().contiguous()
         u = None
         if explore:
-            u = torch.rand((k,) + tuple(self.inputs.shape),
-                           generator=generator, dtype=torch.float32,
-                           device=self.inputs.device)
-        return sample_logp_k(self.inputs.detach().float().contiguous(), u,
-                             explore, k=k)
+            u = torch.rand((k,) + tuple(logits.shape), generator=generator,
+                           dtype=torch.float32, device=logits.device)
+        return sample_logp_k(logits, u, explore, k=k,
+                             host_actions=host_actions)
 
     def sample(self, generator: Optional[torch.Generator] = None):
         return self.sample_with_logp(generator, explore=True)[0]

@@ -8,14 +8,15 @@ selection window:
 
 - One "apply" per env step and env group: upload the newest delta (or
   frame) and build the step's observation on the card. This is kernel
-  K3 (`csrc/obs_apply.cu`, wrapper `apply_obs` below): full-row
+  K3 (`csrc/obs_apply.cu`, wrapper `apply_obs` below, and
+  `GroupObsApply`, the group's lean launch path): full-row
   replacement, delta scatter into the retained frame buffer, and the
   rolling frame stack, in one launch.
 - One "select" per window of k steps: the policy's forward at the
   newest observation and k sampled action arrays (kernel K2k,
-  `TorchPolicy.select`), fetched in a single [k, n] device->host copy
-  into pinned memory, started at dispatch and waited on (a CUDA event)
-  when the window is consumed.
+  `TorchPolicy.select`). K2k writes the [k, n] int32 wire actions
+  straight into the group's pinned host buffer; the fetch waits on the
+  window's CUDA event when the window is consumed.
 - Every step's observation is RETAINED on the card; at fragment end the
   OBS / BOOTSTRAP_OBS / ACTION_DIST_INPUTS / ACTION_LOGP / VF_PREDS
   columns are assembled on the card and handed to the learner as
@@ -37,10 +38,14 @@ while a select is enqueued, so stream order makes each window read
 either the whole old or the whole new parameters. Host->device uploads
 are non-blocking copies from a pinned staging buffer taken fresh for
 each upload (PyTorch's pinned-memory cache hands a block out again only
-after the copy that read it has completed). The retained frame buffer
-is updated in place (the JAX sampler donated it); the stack never is:
-each step's observation is a fresh tensor, and the previous one stays
-in the train batch.
+after the copy that read it has completed). The action buffer is one
+pinned [k, n] int32 tensor per group, written by K2k through its
+device-mapped address and read only after the window's event, then
+copied out (the fragment's ACTIONS column keeps every window's
+actions, and the next window overwrites the buffer). The retained
+frame buffer is updated in place (the JAX sampler donated it); the
+stack never is: each step's observation is a fresh tensor, and the
+previous one stays in the train batch.
 
 Byte/time accounting (`bytes_h2d`, `bytes_d2h`, `t_fetch`, `t_env`,
 `policy_lag_sum`, `fetch_waits`) is kept on the instance and counts what
@@ -51,29 +56,61 @@ encoder, which is not ported: `wire_probe_raw`/`wire_probe_wire` stay 0.
 from __future__ import annotations
 
 import ctypes
+import math
 import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..._private.cuda_build import CudaKernel, stream_handle
+from ..._private.cuda_build import CudaKernel, device_stream_handle
 from .. import sample_batch as sb
 from ..env.delta_obs import all_pad_delta
 from ..sample_batch import SampleBatch
 from .sampler import RolloutMetrics
 
-# K3: one block per env row; see the source note in csrc/obs_apply.cu.
+# K3: a (row, pixel-chunk) grid; see the source note in csrc/obs_apply.cu.
 OBS_APPLY_KERNEL = CudaKernel(
     "obs_apply", "obs_apply.cu", "obs_apply",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p])
+
+# K3's launch plan: about two blocks per SM of an H100 (132 SMs), chunk
+# edges on 16-pixel lines (one uint4 of frame bytes), chunks of 256 to
+# 1024 pixels (a block's 256 threads hold one 4-pixel word each; the
+# kernel's kMaxChunk).
+OBS_APPLY_TARGET_BLOCKS = 2 * 132
+OBS_APPLY_ALIGN_PX = 16
+OBS_APPLY_MIN_CHUNK_PX = 256
+OBS_APPLY_MAX_CHUNK_PX = 1024
+
+_UINT8 = (torch.uint8,)
+_INT32 = (torch.int32,)
+_DONE = (torch.uint8, torch.bool)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def obs_apply_plan(n: int, hw: int) -> Tuple[int, int]:
+    """(chunks per row, pixels per chunk) of K3's grid of n * chunks
+    blocks: enough chunks that n rows give OBS_APPLY_TARGET_BLOCKS
+    blocks, each a multiple of OBS_APPLY_ALIGN_PX pixels, at least
+    OBS_APPLY_MIN_CHUNK_PX and at most OBS_APPLY_MAX_CHUNK_PX; one chunk
+    of the whole row where the row fits in one. Chunk c covers
+    [c * chunk_px, min((c + 1) * chunk_px, hw)); the last one may be
+    ragged."""
+    want = max(-(-OBS_APPLY_TARGET_BLOCKS // max(n, 1)),
+               -(-hw // OBS_APPLY_MAX_CHUNK_PX))
+    chunk = -(-hw // want)
+    chunk = -(-chunk // OBS_APPLY_ALIGN_PX) * OBS_APPLY_ALIGN_PX
+    chunk = min(max(chunk, OBS_APPLY_MIN_CHUNK_PX), OBS_APPLY_MAX_CHUNK_PX)
+    if chunk >= hw:
+        return 1, hw
+    return -(-hw // chunk), chunk
 
 
 def _apply_obs_plain(frames: torch.Tensor, frame_shape: Tuple[int, ...],
@@ -114,64 +151,93 @@ def _apply_obs_plain(frames: torch.Tensor, frame_shape: Tuple[int, ...],
                        rolled)
 
 
-def _apply_obs_cuda(frames, frame_shape, packed=None, done=None, rows=None,
-                    fulls=None, stack=None) -> torch.Tensor:
-    """Launch K3. All byte tensors uint8 (rows int32), contiguous, on
-    one CUDA device; allocates the output."""
-    device = frames.device
-    n = frames.shape[0]
-    hw = int(np.prod(frame_shape))
-    named = {"frames": frames, "packed": packed, "done": done,
-             "rows": rows, "fulls": fulls, "stack": stack}
-    allowed = {"rows": (torch.int32,), "done": (torch.uint8, torch.bool)}
-    for name, x in named.items():
-        if x is None:
-            continue
-        if x.dtype not in allowed.get(name, (torch.uint8,)):
-            raise ValueError(f"obs_apply kernel: {name} is {x.dtype}")
-        if x.device != device:
-            raise ValueError(f"obs_apply kernel: {name} is on {x.device}, "
-                             f"frames on {device}")
-        if not x.is_contiguous():
-            raise ValueError(f"obs_apply kernel: {name} is not contiguous")
+def _check_obs_tensor(name: str, x: torch.Tensor, index: int,
+                      dtypes=_UINT8) -> None:
+    """One K3 operand: an allowed dtype, on CUDA device `index`, dense."""
+    if x.dtype not in dtypes:
+        raise ValueError(f"obs_apply kernel: {name} is {x.dtype}")
+    if x.get_device() != index:
+        raise ValueError(f"obs_apply kernel: {name} is on {x.device}, "
+                         f"not cuda:{index}")
+    if not x.is_contiguous():
+        raise ValueError(f"obs_apply kernel: {name} is not contiguous")
+
+
+def _check_obs_frames(frames: torch.Tensor, n: int, hw: int, index: int,
+                      frame_shape: Tuple[int, ...]) -> None:
+    _check_obs_tensor("frames", frames, index)
     if frames.numel() != n * hw:
         raise ValueError(f"obs_apply kernel: frames {tuple(frames.shape)} "
                          f"do not hold {n} frames of {tuple(frame_shape)}")
+
+
+def _check_obs_stack(stack: Optional[torch.Tensor], n: int, index: int,
+                     frame_shape: Tuple[int, ...]) -> int:
+    """The stack's depth S (0 without one), after checking it."""
+    if stack is None:
+        return 0
+    _check_obs_tensor("stack", stack, index)
+    S = stack.shape[-1]
+    if stack.shape != (n,) + tuple(frame_shape[:-1]) + (S,):
+        raise ValueError(f"obs_apply kernel: stack is "
+                         f"{tuple(stack.shape)} for frames "
+                         f"{tuple(frame_shape)}")
+    return S
+
+
+def _check_obs_uploads(n: int, hw: int, index: int, packed, done, rows,
+                       fulls) -> Tuple[int, int]:
+    """What one call brings: the packed delta rows (or, in frame mode,
+    the done upload) and the full rows. Returns (K, b)."""
+    K = 0
     if packed is not None:
+        _check_obs_tensor("packed", packed, index)
         K = (packed.shape[1] - 1) // 3
         if packed.shape != (n, 3 * K + 1):
             raise ValueError(f"obs_apply kernel: packed is "
                              f"{tuple(packed.shape)}, not [{n}, 3K+1]")
-        done_ptr, done_stride = packed.data_ptr() + 3 * K, 3 * K + 1
     else:
-        K = 0
         if done is None or done.shape != (n,):
             raise ValueError(f"obs_apply kernel: frame mode needs a [{n}] "
                              "done upload")
-        done_ptr, done_stride = done.data_ptr(), 1
+        _check_obs_tensor("done", done, index, _DONE)
     b = 0
     if rows is not None and len(rows):
+        _check_obs_tensor("rows", rows, index, _INT32)
         b = rows.shape[0]
         if fulls is None or fulls.shape != (b, hw):
             raise ValueError(f"obs_apply kernel: fulls must be [{b}, {hw}]")
-    if stack is not None:
-        S = stack.shape[-1]
-        if stack.shape != (n,) + tuple(frame_shape[:-1]) + (S,):
-            raise ValueError(f"obs_apply kernel: stack is "
-                             f"{tuple(stack.shape)} for frames "
-                             f"{tuple(frame_shape)}")
-        out = torch.empty_like(stack)
-    else:
-        S = 0
-        out = torch.empty((n,) + tuple(frame_shape), dtype=torch.uint8,
-                          device=device)
+        _check_obs_tensor("fulls", fulls, index)
+    return K, b
+
+
+def _launch_obs_apply(frames, packed, K, done, rows, fulls, b, stack, out,
+                      n, hw, S, chunk_px, index) -> torch.Tensor:
     OBS_APPLY_KERNEL.launch(
-        frames.data_ptr(), packed.data_ptr() if K else None,
-        done_stride if K else 0, K, done_ptr, done_stride,
+        frames.data_ptr(), packed.data_ptr() if packed is not None else None,
+        K, done.data_ptr() if packed is None else None,
         rows.data_ptr() if b else None, fulls.data_ptr() if b else None, b,
-        stack.data_ptr() if S else None, out.data_ptr(), n, hw, S,
-        stream_handle(frames))
+        stack.data_ptr() if S else None, out.data_ptr(), n, hw, S, chunk_px,
+        device_stream_handle(index))
     return out
+
+
+def _apply_obs_cuda(frames, frame_shape, packed=None, done=None, rows=None,
+                    fulls=None, stack=None) -> torch.Tensor:
+    """Launch K3. All byte tensors uint8 (rows int32), contiguous, on
+    one CUDA device; allocates the output. Checks every operand: the
+    sampler's groups use `GroupObsApply`, which checks the buffers that
+    stay the same from call to call once."""
+    n = frames.shape[0]
+    hw = math.prod(frame_shape)
+    index = frames.get_device()
+    _check_obs_frames(frames, n, hw, index, frame_shape)
+    S = _check_obs_stack(stack, n, index, frame_shape)
+    K, b = _check_obs_uploads(n, hw, index, packed, done, rows, fulls)
+    out = torch.empty_like(stack) if S else torch.empty(
+        (n,) + tuple(frame_shape), dtype=torch.uint8, device=frames.device)
+    return _launch_obs_apply(frames, packed, K, done, rows, fulls, b, stack,
+                             out, n, hw, S, obs_apply_plan(n, hw)[1], index)
 
 
 def apply_obs(frames: torch.Tensor, frame_shape: Tuple[int, ...], *,
@@ -193,16 +259,67 @@ def apply_obs(frames: torch.Tensor, frame_shape: Tuple[int, ...], *,
     with the new frame last, or the frame in every channel where done is
     set; without a stack, a copy of the frames as [n, *frame_shape].
     CUDA tensors launch the K3 kernel (or raise); CPU tensors take the
-    plain version.
+    plain version. No gradient is involved: the operands are bytes.
     """
-    with torch.no_grad():
-        if frames.device.type == "cpu":
-            return _apply_obs_plain(frames, frame_shape, packed, done, rows,
-                                    fulls, stack)
-        if frames.device.type != "cuda":
-            raise ValueError(f"no obs_apply kernel for {frames.device}")
+    if frames.is_cuda:
         return _apply_obs_cuda(frames, frame_shape, packed, done, rows,
                                fulls, stack)
+    if frames.is_cpu:
+        return _apply_obs_plain(frames, frame_shape, packed, done, rows,
+                                fulls, stack)
+    raise ValueError(f"no obs_apply kernel for {frames.device}")
+
+
+class GroupObsApply:
+    """`apply_obs` for one env group of the sampler, on its hot path.
+
+    Built once per group: it checks the buffers that stay the same from
+    call to call (the retained frames in delta mode, and the stack's
+    shape, dtype, device and contiguity, which every output of K3 keeps,
+    since each is `torch.empty_like` of the stack it rolled) and fixes
+    the launch plan. A call then checks only what it brings: the packed
+    delta rows and full rows, or in frame mode the frame and done
+    uploads. On the CPU every call takes the plain version.
+    """
+
+    def __init__(self, device: torch.device, n: int,
+                 frame_shape: Tuple[int, ...],
+                 stack: Optional[torch.Tensor],
+                 frames: Optional[torch.Tensor] = None):
+        self.n = n
+        self.frame_shape = tuple(frame_shape)
+        self.hw = math.prod(self.frame_shape)
+        self.cuda = device.type == "cuda"
+        if not self.cuda:
+            return
+        self.index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        if frames is not None:
+            _check_obs_frames(frames, n, self.hw, self.index,
+                              self.frame_shape)
+        self.S = _check_obs_stack(stack, n, self.index, self.frame_shape)
+        self.chunk_px = obs_apply_plan(n, self.hw)[1]
+
+    def __call__(self, frames: torch.Tensor, stack: Optional[torch.Tensor],
+                 packed: Optional[torch.Tensor] = None,
+                 done: Optional[torch.Tensor] = None,
+                 rows: Optional[torch.Tensor] = None,
+                 fulls: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`apply_obs(frames, frame_shape, ...)` with the group's stack
+        (None: no stack); in delta mode `frames` is the group's retained
+        buffer that the constructor checked."""
+        if not self.cuda:
+            return _apply_obs_plain(frames, self.frame_shape, packed, done,
+                                    rows, fulls, stack)
+        n, hw, index = self.n, self.hw, self.index
+        if packed is None:  # frame mode: the frames are this call's upload
+            _check_obs_frames(frames, n, hw, index, self.frame_shape)
+        K, b = _check_obs_uploads(n, hw, index, packed, done, rows, fulls)
+        out = torch.empty_like(stack) if self.S else torch.empty(
+            (n,) + self.frame_shape, dtype=torch.uint8, device=frames.device)
+        return _launch_obs_apply(frames, packed, K, done, rows, fulls, b,
+                                 stack, out, n, hw, self.S, self.chunk_px,
+                                 index)
 
 
 class _EnvGroup:
@@ -222,8 +339,14 @@ class _EnvGroup:
         self.ep_len = np.zeros(n, np.int64)
         self.cur_eps = eps_base + np.arange(n, dtype=np.int64)
         self.host_done = np.ones(n, bool)
-        # Dispatched window: (host actions [k, n], event, logp [k, n],
-        # dist_inputs [n, A], value [n]).
+        # The window's int32 [k, n] wire actions: K2k writes them straight
+        # into this buffer (pinned, so the card can write it; on the CPU
+        # the plain path copies them in). One buffer per group, reused by
+        # every window: `_consume_window` copies a window's actions out
+        # before the next window is dispatched into it.
+        self.host_actions = sampler._staging((sampler.k, n), torch.int32)[0]
+        # Dispatched window: (event, logp [k, n], dist_inputs [n, A],
+        # value [n]); its actions land in `host_actions`.
         self.pending = None
         # Fetched window consumed sub-step by sub-step.
         self.win_actions = None  # host [k, n]
@@ -248,6 +371,13 @@ class _EnvGroup:
             self.host_delta = None
         else:
             self.host_obs = np.asarray(env.vector_reset())
+        # K3 for this group: the buffers that stay fixed are checked here.
+        self.apply = None
+        if sampler.delta or sampler.frame_stack:
+            self.apply = GroupObsApply(
+                sampler.device, n, sampler._frame_shape
+                if sampler.delta else tuple(self.host_obs.shape[1:]),
+                self.stack, self.frames_d if sampler.delta else None)
 
 
 class DeviceSebulbaSampler:
@@ -314,7 +444,7 @@ class DeviceSebulbaSampler:
         inner = getattr(envs[0], "inner", envs[0])
         self._frame_shape = tuple(inner.observation_space.shape)
         if self.delta:
-            self._hw = int(np.prod(self._frame_shape))
+            self._hw = math.prod(self._frame_shape)
 
         self.groups: List[_EnvGroup] = []
         for env in envs:
@@ -397,52 +527,48 @@ class DeviceSebulbaSampler:
                 (g.n, 3 * idx.shape[1] + 1), torch.uint8)
             self._pack_step(idx, val, done, packed)
             self.bytes_h2d += packed.nbytes
-            g.obs_next = apply_obs(
-                g.frames_d, self._frame_shape,
-                packed=self._to_device(packed_h), rows=rows_d,
-                fulls=fulls_d, stack=g.stack)
+            g.obs_next = g.apply(
+                g.frames_d, g.stack, packed=self._to_device(packed_h),
+                rows=rows_d, fulls=fulls_d)
         else:
             frame = g.host_obs
             frame_d = self._upload(frame)
             done_d = self._upload(done)
             self.bytes_h2d += frame.nbytes + done.nbytes
             if S:
-                g.obs_next = apply_obs(frame_d, tuple(frame.shape[1:]),
-                                       done=done_d, stack=g.stack)
+                g.obs_next = g.apply(frame_d, g.stack, done=done_d)
             else:
                 g.obs_next = frame_d
         if S:
             g.stack = g.obs_next
 
     def _dispatch_select(self, g: _EnvGroup):
-        """Enqueue the selection window for the group's newest obs and
-        start the [k, n] action copy into pinned host memory, so that the
-        fetch finds it there. Reads live parameters under the policy's
-        update lock (`TorchPolicy.select`)."""
-        actions, logp, di, val = self.policy.select(
-            g.obs_next, self.k, self.generator, self.explore)
-        # int32 on the wire, as the JAX sampler's actions.
-        actions = actions.to(torch.int32)
+        """Enqueue the selection window for the group's newest obs: the
+        forward and K2k, which writes the [k, n] int32 wire actions
+        straight into the group's pinned `host_actions`, so that the
+        fetch finds them there once the window's event has completed.
+        Reads live parameters under the policy's update lock
+        (`TorchPolicy.select`)."""
+        _, logp, di, val = self.policy.select(
+            g.obs_next, self.k, self.generator, self.explore,
+            host_actions=g.host_actions)
         event = None
         if self.device.type == "cuda":
-            host = torch.empty(actions.shape, dtype=torch.int32,
-                               pin_memory=True)
-            host.copy_(actions, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        else:
-            host = actions
-        g.pending = (host, event, logp, di, val)
+        g.pending = (event, logp, di, val)
 
     def _consume_window(self, g: _EnvGroup):
         """Wait for the group's dispatched selection window — the ONLY
-        device wait on the hot path, one [k, n] array per k steps."""
-        host, event, logp, di, val = g.pending
+        device wait on the hot path, one [k, n] array per k steps — and
+        copy its actions out of the group's host buffer, which the next
+        window is written into."""
+        event, logp, di, val = g.pending
         g.pending = None
         t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
-        g.win_actions = host.numpy()
+        g.win_actions = g.host_actions.numpy().copy()
         self.t_fetch += time.perf_counter() - t0
         self.fetch_waits += 1
         self.bytes_d2h += g.win_actions.nbytes

@@ -231,18 +231,24 @@ class TorchPolicy(Policy):
 
     def select(self, obs: torch.Tensor, k: int,
                generator: Optional[torch.Generator] = None,
-               explore: bool = True):
+               explore: bool = True, *,
+               host_actions: Optional[torch.Tensor] = None):
         """One Sebulba selection window: the forward at `obs` (a tensor on
         `self.device`) and k action draws from its distribution (kernel
         K2k). Returns (actions int64 [k, n], logp [k, n], dist_inputs
-        [n, A], value [n]), all on the device and not waited for. The
-        update lock is held while the work is enqueued: on one stream the
-        window then reads either the whole old or the whole new
-        parameters (parity: `device_sampler.py:357` `_dispatch_select`)."""
+        [n, A], value [n]), all on the device and not waited for.
+        `host_actions`, an int32 [k, n] host tensor (pinned on a CUDA
+        device), also receives the actions: K2k writes them there, so
+        they are complete once an event recorded after this call has
+        completed. The update lock is held while the work is enqueued: on
+        one stream the window then reads either the whole old or the
+        whole new parameters (parity: `device_sampler.py:357`
+        `_dispatch_select`)."""
         with self._update_lock, torch.no_grad():
             dist_inputs, value = self.model(obs)
             actions, logp = self.dist_class(
-                dist_inputs).sample_k_with_logp(generator, k, explore)
+                dist_inputs).sample_k_with_logp(generator, k, explore,
+                                                host_actions=host_actions)
         return actions, logp, dist_inputs, value
 
     def value_function(self, obs_batch, state=None):

@@ -530,20 +530,20 @@ def test_sac_policy_on_the_card_launches_k9_and_matches_the_cpu(cuda,
 
 def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
     """K3 inputs: delta rows with pad entries, out-of-range indices, a
-    quarter of the rows replaced whole and some done rows; or a frame
-    upload with a done upload. S=0: no stack."""
+    quarter of the rows replaced whole ("delta-all": every row) and some
+    done rows; or a frame upload with a done upload. S=0: no stack."""
     rng = np.random.default_rng(seed)
     side = int(round(hw ** 0.5))
     done = rng.random(n) < 0.25
     kw = {}
-    if mode == "delta":
+    if mode in ("delta", "delta-all"):
         idx = np.stack([rng.permutation(hw + 16)[:K] for _ in range(n)])
         idx[:, ::5] = hw
         idx = idx.astype(np.uint16)
         val = rng.integers(0, 256, (n, K), dtype=np.uint8)
         packed = np.concatenate([idx.view(np.uint8), val,
                                  done.astype(np.uint8)[:, None]], axis=1)
-        m = max(1, n // 4)
+        m = n if mode == "delta-all" else max(1, n // 4)
         b = 1 << (m - 1).bit_length()
         rows = np.full(b, n, np.int32)
         rows[:m] = rng.permutation(n)[:m]
@@ -552,11 +552,12 @@ def _obs_apply_inputs(n, K, S, mode, hw, device, seed=0):
     else:
         kw["done"] = done
     if S:
-        kw["stack"] = rng.integers(0, 256, (n, side, side, S),
-                                   dtype=np.uint8)
+        shape = (n, side, side, S) if side * side == hw else (n, hw, 1, S)
+        kw["stack"] = rng.integers(0, 256, shape, dtype=np.uint8)
     frames = rng.integers(0, 256, (n, hw), dtype=np.uint8)
     kw = {k: torch.from_numpy(v).to(device) for k, v in kw.items()}
-    return torch.from_numpy(frames).to(device), (side, side, 1), kw
+    frame_shape = (side, side, 1) if side * side == hw else (hw, 1, 1)
+    return torch.from_numpy(frames).to(device), frame_shape, kw
 
 
 OBS_APPLY_CASES = [
@@ -566,6 +567,16 @@ OBS_APPLY_CASES = [
     # of other depths, take the kernel's byte-wise paths.
     (5, 7, 3, "delta", 36), (3, 4, 4, "delta", 36),
     (4, 9, 1, "delta", 64), (6, 0, 2, "frame", 49),
+    # The (row, pixel-chunk) grid: one row in 28 chunks; 7 rows whose
+    # last chunk is ragged (7056 = 27 x 256 + 144); bench.py's 192 envs
+    # per group (7 chunks); every row replaced, done rows mixed in; a
+    # frame of 1,000 pixels (byte-wise paths, 4 chunks, the last of
+    # 232); frame mode and no stack on the chunked grid.
+    (1, 128, 4, "delta", 7056), (7, 128, 4, "delta", 7056),
+    (192, 128, 4, "delta", 7056), (32, 128, 4, "delta-all", 7056),
+    (7, 64, 4, "delta-all", 7056), (3, 64, 3, "delta", 1000),
+    (3, 64, 0, "delta", 1000), (7, 0, 4, "frame", 7056),
+    (7, 128, 0, "delta", 7056), (7, 0, 0, "delta", 7056),
 ]
 
 
@@ -587,6 +598,98 @@ def test_obs_apply_kernel_matches_plain(cuda, n, K, S, mode, hw):
     assert torch.equal(f_kernel, f_plain)
     if mode == "frame":
         assert torch.equal(f_kernel, frames)  # read only
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,S", [(1, 4), (7, 4), (32, 4), (7, 3), (32, 0)])
+def test_obs_apply_kernel_writes_both_sides_of_every_chunk_edge(cuda, n, S):
+    """Delta entries at the last pixel of each chunk and the first of the
+    next, at pixels 0 and HW-1, and at indices >= HW (dropped): the
+    observation and the frames equal the plain version's bit for bit."""
+    hw = 7056
+    chunks, chunk = device_sampler.obs_apply_plan(n, hw)
+    assert chunks > 1
+    edges = [c * chunk + d for c in range(1, chunks) for d in (-1, 0)]
+    idx = np.array(edges + [0, hw - 1, hw, hw + 5, 65535], np.uint16)
+    K = len(idx)
+    rng = np.random.default_rng(n)
+    done = np.arange(n) % 3 == 1
+    packed = np.concatenate([
+        np.tile(idx, (n, 1)).view(np.uint8),
+        rng.integers(0, 256, (n, K), dtype=np.uint8),
+        done.astype(np.uint8)[:, None]], axis=1)
+    frames = torch.from_numpy(rng.integers(0, 256, (n, hw), dtype=np.uint8)
+                              ).to(cuda)
+    kw = {"packed": torch.from_numpy(np.ascontiguousarray(packed)).to(cuda)}
+    if S:
+        kw["stack"] = torch.from_numpy(rng.integers(
+            0, 256, (n, 84, 84, S), dtype=np.uint8)).to(cuda)
+    f_kernel, f_plain = frames.clone(), frames.clone()
+    got = device_sampler.apply_obs(f_kernel, (84, 84, 1), **kw)
+    want = device_sampler._apply_obs_plain(f_plain, (84, 84, 1), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(f_kernel, f_plain)
+    assert not torch.equal(f_kernel, frames)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,K,S,mode,hw", [
+    (32, 128, 4, "delta", 7056), (7, 64, 4, "delta-all", 7056),
+    (32, 0, 4, "frame", 7056), (3, 64, 3, "delta", 1000)])
+def test_group_obs_apply_matches_plain_over_steps(cuda, n, K, S, mode, hw):
+    """The sampler's launch path (`GroupObsApply`: fixed buffers checked
+    once) over three steps, each output the next step's stack, against
+    the plain version: equal bit for bit, one launch per step."""
+    frames, shape, kw = _obs_apply_inputs(n, K, S, mode, hw, cuda, seed=n)
+    stack = kw.pop("stack")
+    f_kernel, f_plain = frames.clone(), frames.clone()
+    delta = mode != "frame"
+    apply = device_sampler.GroupObsApply(
+        cuda, n, shape, stack, f_kernel if delta else None)
+    s_kernel = s_plain = stack
+    before = device_sampler.OBS_APPLY_KERNEL.launches
+    for _ in range(3):
+        s_kernel = apply(f_kernel, s_kernel, **kw)
+        s_plain = device_sampler._apply_obs_plain(f_plain, shape, **kw,
+                                                  stack=s_plain)
+    torch.cuda.synchronize()
+    assert device_sampler.OBS_APPLY_KERNEL.launches == before + 3
+    assert torch.equal(s_kernel, s_plain) and torch.equal(f_kernel, f_plain)
+
+
+@pytest.mark.gpu
+def test_group_obs_apply_checks_its_fixed_buffers_once(cuda):
+    frames, shape, kw = _obs_apply_inputs(4, 8, 4, "delta", 64, cuda)
+    with pytest.raises(ValueError, match="stack is torch.float32"):
+        device_sampler.GroupObsApply(cuda, 4, shape, kw["stack"].float(),
+                                     frames)
+    with pytest.raises(ValueError, match="frames is not contiguous"):
+        device_sampler.GroupObsApply(cuda, 4, shape, kw["stack"],
+                                     frames.t().contiguous().t())
+    apply = device_sampler.GroupObsApply(cuda, 4, shape, kw["stack"],
+                                         frames)
+    # What a call brings is still checked on every call.
+    with pytest.raises(ValueError, match="packed is on"):
+        apply(frames, kw["stack"], packed=kw["packed"].cpu())
+    with pytest.raises(ValueError, match="rows is torch.int64"):
+        apply(frames, kw["stack"], packed=kw["packed"],
+              rows=kw["rows"].long(), fulls=kw["fulls"])
+    with pytest.raises(ValueError, match="fulls must be"):
+        apply(frames, kw["stack"], packed=kw["packed"], rows=kw["rows"],
+              fulls=kw["fulls"][:, :-1].contiguous())
+
+
+@pytest.mark.gpu
+def test_stream_handle_follows_the_current_stream(cuda):
+    x = torch.zeros(1, device=cuda)
+    assert cuda_build.stream_handle(x) \
+        == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert cuda_build.stream_handle(x) == side.cuda_stream
+        assert cuda_build.device_stream_handle(x.get_device()) \
+            == side.cuda_stream
 
 
 @pytest.mark.gpu
@@ -644,6 +747,97 @@ def test_categorical_k_at_one_equals_categorical(cuda, explore):
     a, logp = distributions.sample_logp(logits, u[0] if explore else None,
                                         explore)
     assert torch.equal(a_k[0], a) and torch.equal(logp_k[0], logp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,N,A", [(1, 32, 6), (5, 32, 6), (8, 4096, 18)])
+def test_categorical_k_host_actions_equal_device_actions(cuda, k, N, A):
+    """Many windows in a row on one stream, each writing its int32 wire
+    actions into its own pinned buffer through the mapped address: after
+    each window's event, the host buffer equals the device's int64
+    actions; the actions and logp equal the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(k + N + A)
+    windows = []
+    before = distributions.CATEGORICAL_K_KERNEL.launches
+    for w in range(64):
+        logits = torch.randn(N, A, generator=gen, device=cuda) * 3.0
+        u = torch.rand(k, N, A, generator=gen, device=cuda)
+        host = torch.full((k, N), -1, dtype=torch.int32, pin_memory=True)
+        actions, logp = distributions.sample_logp_k(logits, u, True, k,
+                                                    host_actions=host)
+        event = torch.cuda.Event()
+        event.record()
+        windows.append((logits, u, host, actions, logp, event))
+    assert distributions.CATEGORICAL_K_KERNEL.launches == before + 64
+    for logits, u, host, actions, logp, event in windows:
+        event.synchronize()
+        assert torch.equal(host.long(), actions.cpu())
+        want_actions, want_logp = distributions._sample_logp_k_plain(
+            logits, u, k, True)
+        assert torch.equal(actions, want_actions)
+        torch.testing.assert_close(logp, want_logp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_categorical_k_host_actions_reused_buffer(cuda):
+    """The sampler's pattern: one pinned buffer per group, each window
+    read (copied out) after its event, then overwritten by the next."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    host = torch.empty((5, 32), dtype=torch.int32, pin_memory=True)
+    for _ in range(50):
+        logits = torch.randn(32, 6, generator=gen, device=cuda) * 3.0
+        u = torch.rand(5, 32, 6, generator=gen, device=cuda)
+        actions, _ = distributions.sample_logp_k(logits, u, True, 5,
+                                                 host_actions=host)
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        got = host.numpy().copy()
+        np.testing.assert_array_equal(got, actions.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_categorical_k_with_host_actions_at_one_equals_categorical(cuda):
+    """k=1 with the wire output still picks exactly what K2 picks."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    logits = torch.randn(32, 6, generator=gen, device=cuda) * 3.0
+    u = torch.rand(1, 32, 6, generator=gen, device=cuda)
+    host = torch.empty((1, 32), dtype=torch.int32, pin_memory=True)
+    a_k, logp_k = distributions.sample_logp_k(logits, u, True, 1,
+                                              host_actions=host)
+    a, logp = distributions.sample_logp(logits, u[0], True)
+    torch.cuda.synchronize()
+    assert torch.equal(a_k[0], a) and torch.equal(logp_k[0], logp)
+    assert torch.equal(host[0].long(), a.cpu())
+
+
+@pytest.mark.gpu
+def test_categorical_k_rejects_a_pageable_host_buffer(cuda):
+    """A host buffer the card cannot write (pageable memory) fails the
+    call before any launch; the error does not leak into the next launch
+    of the same library."""
+    logits = torch.randn(32, 6, device=cuda)
+    u = torch.rand(5, 32, 6, device=cuda)
+    pageable = torch.empty((5, 32), dtype=torch.int32)
+    before = distributions.CATEGORICAL_K_KERNEL.launches
+    with pytest.raises(RuntimeError, match="categorical_k"):
+        distributions.sample_logp_k(logits, u, True, 5,
+                                    host_actions=pageable)
+    assert distributions.CATEGORICAL_K_KERNEL.launches == before
+    with pytest.raises(ValueError, match="host_actions"):
+        distributions.sample_logp_k(
+            logits, u, True, 5,
+            host_actions=torch.empty((5, 32), dtype=torch.int64,
+                                     pin_memory=True))
+    with pytest.raises(ValueError, match="host_actions"):
+        distributions.sample_logp_k(
+            logits, u, True, 5,
+            host_actions=torch.empty((5, 32), dtype=torch.int32,
+                                     device=cuda))
+    a, _ = distributions.sample_logp(logits, u[0], True)
+    actions, _ = distributions.sample_logp_k(logits, u, True, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(actions[0], a)
 
 
 @pytest.mark.gpu

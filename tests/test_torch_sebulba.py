@@ -30,6 +30,7 @@ from ray_tpu.rllib.env.device_frame_stack import \
     DeviceFrameStack as JaxDeviceFrameStack
 from ray_tpu.rllib.evaluation.device_sampler import \
     DeviceSebulbaSampler as JaxDeviceSebulbaSampler
+from ray_tpu_torch.models import distributions
 from ray_tpu_torch.models.convert import flax_to_state_dict
 from ray_tpu_torch.rllib import sample_batch as sb
 from ray_tpu_torch.rllib.agents.impala.vtrace_policy import VTraceTorchPolicy
@@ -412,3 +413,44 @@ def test_groups2_match_serial():
                                        rtol=F32_TOL, atol=F32_TOL,
                                        err_msg=f"{col} @ {r}")
     assert sum(m.episode_length for m in serial.metrics) > 0
+
+
+# ---------------------------------------------------------------------
+# The wire actions: one host buffer per group, reused by every window
+# ---------------------------------------------------------------------
+@pytest.mark.parametrize("k,groups", [(1, 1), (5, 1), (5, 2), (1, 2)])
+def test_actions_column_holds_every_windows_draws(k, groups):
+    """Exploring, over fragments of several windows: the ACTIONS column
+    holds, for each window, the Gumbel-max draws of that window's logits
+    with the uniforms that window took from the sampler's generator
+    (`torch.rand((k, n, A))`, windows in dispatch order, groups in turn),
+    although every window's actions pass through the group's one host
+    buffer. So no window's actions are overwritten by the next, and the
+    draws are the ones the sampler took before the buffer existed."""
+    T, n, seed, frags = 10, 4, 5, 3
+    envs = _sprite_envs(BatchedSpriteAtari, DeviceFrameStack, groups, 4,
+                        n=n)
+    policy = _port_policy((84, 84, 4), 6, model=SMALL_CNN)
+    sampler = DeviceSebulbaSampler(envs, policy, T, explore=True,
+                                   onchip_steps=k, seed=seed)
+    per, windows = n // groups, T // k
+    gen = torch.Generator().manual_seed(seed)
+    # draws[W][g]: window W of group g (window 0 primes the pipeline).
+    draws = [[torch.rand((k, per, 6), generator=gen) for _ in range(groups)]
+             for _ in range(frags * windows)]
+    distinct = set()
+    for frag in range(frags):
+        batch = sampler.sample()
+        acts = _host(batch[sb.ACTIONS]).reshape(groups, per, T)
+        di = _host(batch[sb.ACTION_DIST_INPUTS]).reshape(groups, per, T, 6)
+        for w in range(windows):
+            for g in range(groups):
+                want, _ = distributions._sample_logp_k_plain(
+                    torch.from_numpy(di[g, :, w * k]),
+                    draws[frag * windows + w][g], k, True)
+                np.testing.assert_array_equal(
+                    acts[g, :, w * k:(w + 1) * k], want.numpy().T,
+                    err_msg=f"fragment {frag} window {w} group {g}")
+                distinct.update(want.numpy().ravel().tolist())
+    assert _host(batch[sb.ACTIONS]).dtype == np.int32
+    assert len(distinct) > 1  # the draws vary: an exploring check
