@@ -17,12 +17,18 @@ falls back to the CPU):
    error against the stated tolerance, the launch count, and the time
    per call of kernel and plain version (CUDA events over many calls
    after warm-up), plus the kernel's device-only time (profiler). The
-   k-step sampling kernel at k=1 is also held equal to the single-step
-   one, and its int32 wire actions in pinned host memory equal to its
-   device actions; the observation kernel is also held through the
-   Sebulba sampler's own launch path (`GroupObsApply`) and timed at
-   n=32 and at bench.py's n=192, besides n=1 and 7 (its pixel-chunk
-   grid with a ragged last chunk) and 512.
+   single-step sampling kernel (K2) is also held with its step record
+   in pinned host memory (actions, logp, logits and value equal to the
+   device's, bit for bit), and SAC's tail (K9f) with its host actions;
+   the host time of an env step's tail after the forward (K2's from the
+   logits to the four numpy columns, K9f's acting tail from the actor's
+   output to the numpy actions) is timed at the local-mode, PPO Atari
+   and SAC shapes. The k-step sampling kernel at k=1 is also held equal
+   to the single-step one, and its int32 wire actions in pinned host
+   memory equal to its device actions; the observation kernel is also
+   held through the Sebulba sampler's own launch path (`GroupObsApply`)
+   and timed at n=32 and at bench.py's n=192, besides n=1 and 7 (its
+   pixel-chunk grid with a ragged last chunk) and 512.
 3. Local-mode trainer: `IMPALATrainer(config=...).train()` on
    SyntheticAtari-v0 (84x84x4 uint8 frames, 6 actions) with the
    full-width Nature CNN (bf16 trunk), 32 envs x 50-step fragments,
@@ -440,42 +446,157 @@ def check_vtrace(T, B, timed):
 
 
 def check_categorical(B, A, timed):
+    """K2 against its plain version (actions equal, logp within
+    LOGP_TOL), without and with the step record: after the record's
+    event its actions and logp equal the device outputs and its logits
+    and value columns the device tensors, bit for bit. Timed: `ms` per
+    call with the record (the local-mode sampler's form), `bare_ms`
+    without it, the device-only time of each, and `tail_ms`, the host
+    time of a whole env step's tail (`k2_step_tail`)."""
     import torch
     from ray_tpu_torch.models import distributions
     g = torch.Generator(device="cuda").manual_seed(B * A)
     logits = torch.randn(B, A, generator=g, device="cuda") * 3.0
     u = torch.rand(B, A, generator=g, device="cuda")
+    value = torch.randn(B, generator=g, device="cuda")
+    record = distributions.StepRecord(B, A, pin=True)
     err = 0.0
     for explore in (True, False):
-        actions, logp = distributions.sample_logp(logits, u, explore)
         want_a, want_logp = distributions._sample_logp_plain(
             logits, u, explore)
-        torch.cuda.synchronize()
-        if not torch.equal(actions, want_a):
-            raise AssertionError(
-                f"categorical kernel picks other actions than plain at "
-                f"B={B} A={A} explore={explore}: "
-                f"{int((actions != want_a).sum())} rows differ")
-        e = float((logp - want_logp).abs().max())
-        if not e <= LOGP_TOL:
-            raise AssertionError(
-                f"categorical kernel logp err {e} > {LOGP_TOL}")
-        err = max(err, e)
+        for rec in (None, record):
+            actions, logp = distributions.sample_logp(
+                logits, u, explore, value=None if rec is None else value,
+                record=rec)
+            torch.cuda.synchronize()
+            if not torch.equal(actions, want_a):
+                raise AssertionError(
+                    f"categorical kernel picks other actions than plain at "
+                    f"B={B} A={A} explore={explore} record={rec is not None}"
+                    f": {int((actions != want_a).sum())} rows differ")
+            e = float((logp - want_logp).abs().max())
+            if not e <= LOGP_TOL:
+                raise AssertionError(
+                    f"categorical kernel logp err {e} > {LOGP_TOL}")
+            err = max(err, e)
+        record.record_done(logits.device)
+        got = record.columns()
+        for name, host, dev in zip(("actions", "logp", "value", "logits"),
+                                   got, (actions, logp, value, logits)):
+            if host.tobytes() != dev.cpu().numpy().tobytes():
+                raise AssertionError(
+                    f"categorical step record's {name} differ from the "
+                    f"device's at B={B} A={A} explore={explore}")
     row = {"B": B, "A": A, "max_abs_err": err}
     if timed:
-        row["ms"] = time_call(
-            lambda: distributions.sample_logp(logits, u, True), reps=2000)
+        with_record = lambda: distributions.sample_logp(  # noqa: E731
+            logits, u, True, value=value, record=record)
+        bare = lambda: distributions.sample_logp(logits, u, True)  # noqa
+        row["ms"] = time_call(with_record, reps=2000)
+        row["bare_ms"] = time_call(bare, reps=2000)
         row["plain_ms"] = time_call(
             lambda: distributions._sample_logp_plain(logits, u, True),
             reps=500)
-        row["device_ms"] = device_ms(
-            lambda: distributions.sample_logp(logits, u, True),
-            "categorical_sample_kernel")
+        row["device_ms"] = device_ms(with_record,
+                                     "categorical_sample_kernel")
+        row["bare_device_ms"] = device_ms(bare, "categorical_sample_kernel")
+        row["tail_ms"] = host_ms(k2_step_tail(logits, value), reps=2000)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *categorical_bytes_ops(B, A, record=True))
     log(f"  categorical B={B} A={A}: actions equal, logp "
-        f"max_abs_err={err:.3e} (tol {LOGP_TOL})"
-        + (f" kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        f"max_abs_err={err:.3e} (tol {LOGP_TOL}), step record equal"
+        + (f"; kernel {row['ms']:.5f} ms per call with the record "
+           f"({row['bare_ms']:.5f} without), plain {row['plain_ms']:.5f} "
+           f"ms (device-only {row['device_ms']} ms with the record, "
+           f"{row['bare_device_ms']} without; bound {row['bound_ms']:.3e} "
+           f"ms); the env step's tail {row['tail_ms']:.5f} ms of host "
+           f"time" if timed else ""))
     return row
+
+
+def categorical_bytes_ops(B, A, record):
+    """K2's bytes and f32 operations for one exploring call: logits and
+    uniforms read once, int64 actions and f32 logp written once; with
+    the step record also the value read once and the record's actions,
+    logp, value and logits written once. ~9 operations per element (the
+    Gumbel noise, the max and the exp-sum) and 3 per row."""
+    nbytes = 4 * 2 * B * A + (8 + 4) * B
+    if record:
+        nbytes += 4 * B + (8 + 4 + 4 + 4 * A) * B
+    return nbytes, 9 * B * A + 3 * B
+
+
+def host_ms(fn, reps, warmup=10):
+    """Host milliseconds per call of `fn`, a call that ends in a wait
+    for its own device work (perf_counter around `reps` calls)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def k2_step_tail(logits, value, seed=0):
+    """One Categorical env step's tail as the tree's
+    `TorchPolicy.compute_actions` runs it after the forward: from the
+    logits and value on the card to the numpy actions, logp, logits and
+    value in hand. Returns a callable. Where the tree has the step
+    record: the uniforms, K2 writing the record, one wait and the
+    copies (`categorical_step`, `columns`); before it: the uniforms, K2
+    and four `.cpu()` copies."""
+    import torch
+    from ray_tpu_torch.models import distributions
+    generator = torch.Generator(device=logits.device).manual_seed(seed)
+    if not hasattr(distributions, "StepRecord"):
+        def tail():
+            actions, logp = distributions.Categorical(
+                logits).sample_with_logp(generator, explore=True)
+            return (logp.cpu().numpy(), logits.cpu().numpy(),
+                    value.cpu().numpy(), actions.cpu().numpy())
+        return tail
+    from types import SimpleNamespace
+    from ray_tpu_torch.rllib.policy.torch_policy import TorchPolicy
+    policy = SimpleNamespace(generator=generator, device=logits.device)
+    record = distributions.StepRecord(*logits.shape, pin=True)
+
+    def tail():
+        TorchPolicy.categorical_step(policy, logits, value, True, record)
+        return record.columns()
+    return tail
+
+
+def k9f_act_tail(x, low, high, seed=0):
+    """One SAC env step's acting tail as the tree's
+    `SACPolicy.compute_actions` runs it after the actor: from the
+    actor's output x [B, 2d] on the card to the numpy actions in hand.
+    Returns a callable. Where the tree has the host output: the
+    normals, K9f writing it, one wait and a copy; before it: the
+    normals, K9f and a `.cpu()` copy."""
+    import torch
+    from ray_tpu_torch.models import distributions as D
+    generator = torch.Generator(device=x.device).manual_seed(seed)
+    B, d = x.shape[0], x.shape[1] // 2
+
+    def normals():
+        return torch.randn((B, d), generator=generator, dtype=torch.float32,
+                           device=x.device)
+
+    if not hasattr(D, "ActionRecord"):
+        def tail():
+            actions, _ = D.squashed_gaussian_sample_logp(x, normals(), low,
+                                                         high, True)
+            return actions.cpu().numpy()
+        return tail
+    constants = D.SquashedTail(low, high, d)
+    host = D.ActionRecord(B, d, pin=True)
+
+    def tail():
+        D.squashed_gaussian_sample_logp(x, normals(), explore=True,
+                                        tail=constants, host_actions=host)
+        host.record_done(x.device)
+        return host.columns()
+    return tail
 
 
 def obs_apply_inputs(n, K, S, mode, seed, hw=84 * 84):
@@ -803,13 +924,14 @@ def check_eps_greedy(B, A, timed):
     return row
 
 
-def squashed_bytes_ops(B, d, explore=True):
+def squashed_bytes_ops(B, d, explore=True, host=False):
     """K9f's bytes (x and, exploring, z read once; actions and logp
-    written once) and f32 operations (~30 per element: the clamp, exp,
+    written once, and with `host` the actions once more to the host
+    output) and f32 operations (~30 per element: the clamp, exp,
     sample, tanh, squash, the Gaussian term and the log-det with its
     softplus' exp and log1p, the row sum; one per row)."""
-    return 4 * (2 * B * d + (B * d if explore else 0) + B * d + B), \
-        30 * B * d + B
+    return 4 * (2 * B * d + (B * d if explore else 0) + B * d + B
+                + (B * d if host else 0)), 30 * B * d + B
 
 
 def squashed_backward_bytes_ops(B, d):
@@ -873,6 +995,15 @@ def check_squashed_gaussian(B, d, timed):
         if bool((got[0] < low).any()) or bool((got[0] > high).any()):
             raise AssertionError("squashed_gaussian: an action out of "
                                  "[low, high]")
+        host = D.ActionRecord(B, d, pin=True)
+        again = D.squashed_gaussian_sample_logp(x, zz, low, high, explore,
+                                                host_actions=host)
+        host.record_done(x.device)
+        if host.columns().tobytes() != again[0].cpu().numpy().tobytes() \
+                or not torch.equal(again[0], got[0]):
+            raise AssertionError(f"squashed_gaussian host actions differ "
+                                 f"from the device's at B={B} d={d} "
+                                 f"explore={explore}")
     xb, zb = squashed_inputs(B, d, seed=B * d + 10, margin=1e-3)
     g = torch.Generator(device="cuda").manual_seed(B + d)
     ga = torch.randn(B, d, generator=g, device="cuda")
@@ -902,6 +1033,10 @@ def check_squashed_gaussian(B, d, timed):
             x, z, low, high, True), reps=500)
         row["device_ms"] = device_ms(lambda: D.squashed_gaussian_sample_logp(
             x, z, low, high, True), "squashed_gaussian_sample_kernel")
+        xg = x.clone().requires_grad_(True)
+        row["grad_ms"] = time_call(lambda: D.squashed_gaussian_sample_logp(
+            xg, z, low, high, True), reps=2000)
+        row["tail_ms"] = host_ms(k9f_act_tail(x, low, high), reps=2000)
         row["b_ms"] = time_call(lambda: D._squashed_gaussian_backward_cuda(
             xb, zb, ga, gl, low, high, True), reps=2000)
         row["b_plain_ms"] = time_call(
@@ -914,9 +1049,11 @@ def check_squashed_gaussian(B, d, timed):
     log(f"  squashed_gaussian B={B} d={d}: forward max_abs_err={err:.3e}, "
         f"backward {err_b:.3e} (tol {SQUASHED_TOL} + {SQUASHED_TOL}"
         f"*|plain|; backward with g_a, g_logp, each absent, and through "
-        f"autograd)"
-        + (f"; K9f {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(device-only {row['device_ms']} ms); K9b {row['b_ms']:.5f} "
+        f"autograd), host actions equal"
+        + (f"; K9f {row['ms']:.5f} ms ({row['grad_ms']:.5f} for an input "
+           f"that needs a gradient) plain {row['plain_ms']:.5f} ms "
+           f"(device-only {row['device_ms']} ms), the acting tail "
+           f"{row['tail_ms']:.5f} ms of host time; K9b {row['b_ms']:.5f} "
            f"ms plain {row['b_plain_ms']:.5f} ms (device-only "
            f"{row['b_device_ms']} ms)" if timed else ""))
     return row
@@ -1002,7 +1139,9 @@ def check_device_env(kind, n, timed):
 # ---------------------------------------------------------------------
 # phase 3: the trainer
 # ---------------------------------------------------------------------
-def run_trainer():
+def run_trainer(with_summary=False):
+    """Phase 3's local-mode run. -> (the trained weights, the launch
+    counts), and its summary with `with_summary`."""
     import torch
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
@@ -1086,6 +1225,8 @@ def run_trainer():
         "profiled_iteration": prof,
     }
     log(f"  trainer summary: {json.dumps(summary)}")
+    if with_summary:
+        return policy.get_weights(), launches, summary
     return policy.get_weights(), launches
 
 
@@ -2324,7 +2465,7 @@ def split_sac_update(trainer, n):
     return {k: 1e3 * v / n for k, v in parts.items()}
 
 
-def run_sac():
+def run_sac(with_summary=False):
     """`SAC_ITERS` iterations of `SACTrainer(SAC_CONFIG)` with every
     kernel's count set to 0 just before: K9f must launch once per acted
     env step (past `pure_exploration_steps`), once per evaluation step
@@ -2332,7 +2473,8 @@ def run_sac():
     all; the third iteration must carry the evaluation, and alpha must
     have moved down from 1. Then one shorter iteration profiled and
     `SAC_SPLIT_UPDATES` updates split into their parts. Returns
-    (trainer, K9f launches, K9b launches, the last replay batch)."""
+    (trainer, K9f launches, K9b launches, the last replay batch), and
+    the summary with `with_summary`."""
     import torch
     from ray_tpu_torch.rllib.agents.sac import SACTrainer
 
@@ -2440,8 +2582,9 @@ def run_sac():
         "profiled_iteration": prof,
     }
     log(f"  sac_pendulum summary: {json.dumps(summary)}")
-    return (trainer, launches["squashed_gaussian"],
-            launches["squashed_gaussian_backward"], last_batch[0])
+    out = (trainer, launches["squashed_gaussian"],
+           launches["squashed_gaussian_backward"], last_batch[0])
+    return out + (summary,) if with_summary else out
 
 
 def check_sac_against_cpu(trainer, batch):
@@ -2613,9 +2756,9 @@ def main():
     check_categorical(ANAKIN_ENVS, NUM_ACTIONS, timed=False)
     check_categorical(n_cp, 2, timed=False)
     # K2 at the shape phase 7's PPO Atari path gives it (16 envs).
-    check_categorical(PPO_ATARI_ENVS, NUM_ACTIONS, timed=False)
+    check_categorical(PPO_ATARI_ENVS, NUM_ACTIONS, timed=True)
     k1_bound = bound_ms(4 * (6 * T * B + B), 17 * T * B)
-    k2_bound = bound_ms(4 * (2 * B * A) + 8 * B + 4 * B, 9 * B * A + 3 * B)
+    k2_bound = (k2["bound_ms"], k2["bound_by"])
     # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
     # stack 4) in every mode, then at a larger shape.
     # n=192 is bench.py's 384 envs per actor in 2 groups; n=1 and 7 run

@@ -1,30 +1,48 @@
 #!/usr/bin/env python3
-"""Time the Sebulba actor's two kernels, K3 (obs apply) and K2k (k-step
-categorical), of several trees of this repository on one card, in turns.
+"""Time the port's small per-step kernels of several trees of this
+repository on one card, in turns.
 
-    python3 kernel_ab.py [--out FILE] OLD NEW NEW OLD   # each a checkout's root
+    python3 kernel_ab.py [--out FILE] [--legs LEG,...] OLD NEW NEW OLD
 
-Each TREE runs in a process of its own, in the order given, with its
-own `ray_tpu_torch` first on the path (its kernels built from its own
-`csrc/` into its own `_build/`); the measuring code is this file's and
-this directory's `chip_smoke.py`, the same for every tree. Per tree:
+Each TREE (a checkout's root) runs in a process of its own, in the
+order given, with its own `ray_tpu_torch` first on the path (its kernels
+built from its own `csrc/` into its own `_build/`); the measuring code
+is this file's and this directory's `chip_smoke.py`, the same for every
+tree. The legs (all by default):
 
-- K3 at n=32 (the Sebulba cell's group) and n=192 (bench.py's 384 envs
-  per actor in 2 groups), K=128, S=4, a quarter of the rows replaced,
-  a tenth done: held bit for bit against the tree's plain version; the
-  kernel's device time (torch.profiler), the time per call (CUDA events
-  over back-to-back calls) through `apply_obs` and through the
-  sampler's own launch path (`GroupObsApply` where the tree has it,
+- `k3`: K3 at n=32 (the Sebulba cell's group) and n=192 (bench.py's 384
+  envs per actor in 2 groups), K=128, S=4, a quarter of the rows
+  replaced, a tenth done: held bit for bit against the tree's plain
+  version; the kernel's device time (torch.profiler), the time per call
+  (CUDA events over back-to-back calls) through `apply_obs` and through
+  the sampler's own launch path (`GroupObsApply` where the tree has it,
   else `apply_obs`), the plain version's, and the bound.
-- K2k at k=1 and 5 (N=32, A=6): actions held against the plain
+- `k2k`: K2k at k=1 and 5 (N=32, A=6): actions held against the plain
   version; device time, time per call of the bare wrapper, and of the
   window's tail as the tree's sampler runs it (with the pinned wire
   output where the tree has it; else the int32 cast, a pinned buffer
   and the device-to-host copy), with the device operations that tail
   enqueues (profiler kernels and copies per call) and their device
   time, K2k's own device time in that tail, plain and bound.
-- Phase 4 of `chip_smoke.py` (the Sebulba trainer at k=1 and k=5):
-  env steps/s and the actors' wall split (`apply_pct`, `select_pct`).
+- `k2`: K2 at 32x6 (local mode) and 16x6 (PPO Atari): actions held
+  against the plain version; device time and time per call of the bare
+  wrapper, and the env step's tail as the tree's
+  `TorchPolicy.compute_actions` runs it after the forward
+  (`chip_smoke.k2_step_tail`: from the logits and value on the card to
+  the four numpy columns): its host time per step, the device
+  operations it enqueues and their device time, K2's own device time
+  in it; plain and bound (with the step record where the tree has one).
+- `k9f`: K9f at 1x1 (SAC's acting step): device time, the acting tail
+  (`chip_smoke.k9f_act_tail`, from the actor's output to the numpy
+  actions) with its host time, device operations and their device
+  time; at 256x1 (an update): time per call through the tree's path
+  with no gradient and for an input that needs one (the autograd
+  function), device time; plain and bound at both.
+- `phase3`: phase 3 of `chip_smoke.py` (local-mode IMPALA): env steps/s.
+- `phase4`: phase 4 (the Sebulba trainer at k=1 and k=5): env steps/s
+  and the actors' wall split (`apply_pct`, `select_pct`).
+- `phase10`: phase 10's run (SAC on Pendulum): env steps/s of the
+  learning iteration, update time.
 
 Prints one JSON line per tree run (`{"tree": ..., ...}`), writes them
 all to FILE as a JSON list when `--out` is given, then prints the
@@ -41,6 +59,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 K3_SHAPES = (32, 192)
 K2K_STEPS = (1, 5)
+K2_SHAPES = ((32, 6), (16, 6))
+K9F_SHAPES = ((1, 1), (256, 1))
 
 
 def k2k_window_tail(distributions, logits, u, k, host):
@@ -92,27 +112,11 @@ def load_chip_smoke():
     return module
 
 
-def measure(tree):
-    import torch
-    sys.path.insert(0, os.path.abspath(tree))
-    import ray_tpu_torch
-    pkg = os.path.dirname(os.path.abspath(ray_tpu_torch.__file__))
-    if os.path.dirname(pkg) != os.path.abspath(tree):
-        raise AssertionError(f"imported {pkg}, not the tree {tree}")
-    cs = load_chip_smoke()
-    from ray_tpu_torch._private import cuda_build
-    from ray_tpu_torch.models import distributions
-    from ray_tpu_torch.rllib.agents.impala import vtrace
-    from ray_tpu_torch.rllib.evaluation import device_sampler as ds
+LEGS = ("k3", "k2k", "k2", "k9f", "phase3", "phase4", "phase10")
 
-    t0 = time.perf_counter()
-    cuda_build.build_all([vtrace.VTRACE_KERNEL,
-                          distributions.CATEGORICAL_KERNEL,
-                          distributions.CATEGORICAL_K_KERNEL,
-                          ds.OBS_APPLY_KERNEL])
-    out = {"tree": tree, "package": pkg,
-           "build_s": time.perf_counter() - t0, "k3": {}, "k2k": {}}
 
+def leg_k3(cs, torch, distributions, ds):
+    out = {}
     for n in K3_SHAPES:
         frames, args = cs.obs_apply_inputs(n, 128, 4, "delta", seed=n + 132)
         shape = args.pop("frame_shape")
@@ -124,14 +128,14 @@ def measure(tree):
             raise AssertionError(f"K3 differs from plain at n={n}")
         row = {"bytes": cs.obs_apply_bytes(frames, args)}
         row["bound_ms"] = cs.bound_ms(row["bytes"], 0)[0]
-        apply = lambda: ds.apply_obs(f_kernel, shape, **args)
+        apply = lambda: ds.apply_obs(f_kernel, shape, **args)  # noqa: E731
         path = apply
         if hasattr(ds, "GroupObsApply"):
             stack = args["stack"]
             rest = {k: v for k, v in args.items() if k != "stack"}
             group = ds.GroupObsApply(torch.device("cuda"), n, shape, stack,
                                      f_kernel)
-            path = lambda: group(f_kernel, stack, **rest)
+            path = lambda: group(f_kernel, stack, **rest)  # noqa: E731
             row["blocks"] = n * ds.obs_apply_plan(n, frames.numel() // n)[0]
         else:
             row["blocks"] = n
@@ -140,8 +144,12 @@ def measure(tree):
         row["path_ms"] = cs.time_call(path, reps=2000)
         row["plain_ms"] = cs.time_call(
             lambda: ds._apply_obs_plain(f_plain, shape, **args), reps=500)
-        out["k3"][n] = row
+        out[n] = row
+    return out
 
+
+def leg_k2k(cs, torch, distributions, ds):
+    out = {}
     wire = "host_actions" in inspect.signature(
         distributions.sample_logp_k).parameters
     N, A = 32, 6
@@ -157,11 +165,11 @@ def measure(tree):
         host = torch.empty((k, N), dtype=torch.int32, pin_memory=True) \
             if wire else None
         tail = k2k_window_tail(distributions, logits, u, k, host)
-        bare = lambda: distributions.sample_logp_k(
+        bare = lambda: distributions.sample_logp_k(  # noqa: E731
             logits, u, True, k)
         nbytes, ops = cs.categorical_k_bytes_ops(k, N, A)
         tail_ops, tail_device_ms = device_work_per_call(tail)
-        out["k2k"][k] = {
+        out[k] = {
             "wire_output": wire,
             "device_ms": cs.device_ms(bare, "categorical_sample_k_kernel"),
             "tail_kernel_device_ms": cs.device_ms(
@@ -175,15 +183,145 @@ def measure(tree):
                     logits, u, k, True), reps=500),
             "bound_ms": cs.bound_ms(nbytes, ops)[0],
         }
+    return out
 
-    out["phase4"] = {}
+
+def leg_k2(cs, torch, distributions, ds):
+    out = {}
+    record = hasattr(distributions, "StepRecord")
+    for B, A in K2_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * A)
+        logits = torch.randn(B, A, generator=g, device="cuda") * 3.0
+        value = torch.randn(B, generator=g, device="cuda")
+        u = torch.rand(B, A, generator=g, device="cuda")
+        actions, _ = distributions.sample_logp(logits, u, True)
+        want, _ = distributions._sample_logp_plain(logits, u, True)
+        torch.cuda.synchronize()
+        if not torch.equal(actions, want):
+            raise AssertionError(f"K2 differs from plain at {B}x{A}")
+        bare = lambda: distributions.sample_logp(logits, u, True)  # noqa
+        tail = cs.k2_step_tail(logits, value)
+        columns = tail()
+        if sorted(c.shape for c in columns) != sorted(
+                [(B,), (B,), (B,), (B, A)]):
+            raise AssertionError(f"K2's tail returned {columns}")
+        tail_ops, tail_device_ms = device_work_per_call(tail)
+        out[f"{B}x{A}"] = {
+            "step_record": record,
+            "device_ms": cs.device_ms(bare, "categorical_sample_kernel"),
+            "tail_kernel_device_ms": cs.device_ms(
+                tail, "categorical_sample_kernel"),
+            "bare_ms": cs.time_call(bare, reps=2000),
+            "tail_host_ms": cs.host_ms(tail, reps=2000),
+            "tail_device_ops": tail_ops,
+            "tail_device_ms": tail_device_ms,
+            "plain_ms": cs.time_call(
+                lambda: distributions._sample_logp_plain(logits, u, True),
+                reps=500),
+            "bound_ms": cs.bound_ms(
+                *cs.categorical_bytes_ops(B, A, record=record))[0],
+        }
+    return out
+
+
+def leg_k9f(cs, torch, D, ds):
+    out = {}
+    record = hasattr(D, "ActionRecord")
+    low, high = -2.0, 2.0  # Pendulum's action bounds
+    for B, d in K9F_SHAPES:
+        x, z = cs.squashed_inputs(B, d, seed=B * d + 9, margin=0.0)
+        got, _ = D.squashed_gaussian_sample_logp(x, z, low, high, True)
+        want, _ = D._squashed_gaussian_plain(x, z, low, high, True)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=cs.SQUASHED_TOL,
+                              atol=cs.SQUASHED_TOL):
+            raise AssertionError(f"K9f differs from plain at {B}x{d}")
+        kw = {}
+        if "tail" in inspect.signature(
+                D.squashed_gaussian_sample_logp).parameters:
+            kw["tail"] = D.SquashedTail(low, high, d)
+        xg = x.clone().requires_grad_(True)
+        path = lambda: D.squashed_gaussian_sample_logp(  # noqa: E731
+            x, z, low, high, True, **kw)
+        row = {
+            "host_output": record,
+            "device_ms": cs.device_ms(path,
+                                      "squashed_gaussian_sample_kernel"),
+            "ms": cs.time_call(path, reps=2000),
+            "grad_ms": cs.time_call(
+                lambda: D.squashed_gaussian_sample_logp(
+                    xg, z, low, high, True, **kw), reps=2000),
+            "plain_ms": cs.time_call(
+                lambda: D._squashed_gaussian_plain(x, z, low, high, True),
+                reps=500),
+            "bound_ms": cs.bound_ms(*cs.squashed_bytes_ops(B, d))[0],
+        }
+        if B == 1:
+            tail = cs.k9f_act_tail(x, low, high)
+            if tail().shape != (B, d):
+                raise AssertionError("K9f's acting tail's actions")
+            row["tail_ops"], row["tail_device_ms"] = \
+                device_work_per_call(tail)
+            row["tail_kernel_device_ms"] = cs.device_ms(
+                tail, "squashed_gaussian_sample_kernel")
+            row["tail_host_ms"] = cs.host_ms(tail, reps=2000)
+            row["tail_bound_ms"] = cs.bound_ms(*cs.squashed_bytes_ops(
+                B, d, host=record))[0]
+        out[f"{B}x{d}"] = row
+    return out
+
+
+def leg_phase3(cs):
+    _, _, summary = cs.run_trainer(with_summary=True)
+    summary.pop("profiled_iteration", None)
+    return {k: summary[k] for k in ("env_steps_per_s_steady", "iter_s",
+                                    "sample_s_steady_mean",
+                                    "learner_grad_ms_steady_mean")}
+
+
+def leg_phase4(cs):
+    out = {}
     for k in (1, 5):
         summary, _ = cs.run_sebulba(k)
         summary.pop("profiled_iteration", None)
-        out["phase4"][k] = {
+        out[k] = {
             "env_steps_per_s_steady": summary["env_steps_per_s_steady"],
             "iter_s": summary["iter_s"],
             **summary["transfer_steady"]}
+    return out
+
+
+def leg_phase10(cs):
+    trainer, _, _, _, summary = cs.run_sac(with_summary=True)
+    trainer.stop()
+    keys = ("env_steps_per_s_learning", "iter_s", "update_ms_learning",
+            "sample_s_learning", "update_split_ms_synced")
+    return {k: summary[k] for k in keys}
+
+
+def measure(tree, legs):
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    import ray_tpu_torch
+    pkg = os.path.dirname(os.path.abspath(ray_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(tree):
+        raise AssertionError(f"imported {pkg}, not the tree {tree}")
+    cs = load_chip_smoke()
+    from ray_tpu_torch._private import cuda_build
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.evaluation import device_sampler as ds
+
+    t0 = time.perf_counter()
+    cuda_build.build_all(cs.port_kernels())
+    out = {"tree": tree, "package": pkg,
+           "build_s": time.perf_counter() - t0}
+    for leg in legs:
+        t0 = time.perf_counter()
+        if leg.startswith("phase"):
+            out[leg] = globals()[f"leg_{leg}"](cs)
+        else:
+            out[leg] = globals()[f"leg_{leg}"](cs, torch, distributions, ds)
+        out[f"{leg}_s"] = time.perf_counter() - t0
     return out
 
 
@@ -193,12 +331,17 @@ def main(argv):
         if not torch.cuda.is_available():
             print("kernel_ab: no CUDA device", file=sys.stderr)
             return 2
-        print(json.dumps(measure(argv[1])), flush=True)
+        print(json.dumps(measure(argv[1], argv[2].split(","))), flush=True)
         return 0
-    out_path = None
-    if argv[:1] == ["--out"]:
-        out_path, argv = argv[1], argv[2:]
-    if not argv:
+    out_path, legs = None, ",".join(LEGS)
+    while argv[:1] in (["--out"], ["--legs"]):
+        if argv[0] == "--out":
+            out_path = argv[1]
+        else:
+            legs = argv[1]
+        argv = argv[2:]
+    unknown = set(legs.split(",")) - set(LEGS)
+    if not argv or unknown:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -209,7 +352,7 @@ def main(argv):
     for tree in argv:
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", tree],
+            [sys.executable, os.path.abspath(__file__), "--one", tree, legs],
             capture_output=True, text=True, cwd=HERE, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:

@@ -134,8 +134,28 @@ class CudaKernel:
                     err.argtypes = [ctypes.c_int]
                     err.restype = ctypes.c_char_p
                     self._error_string = err
+                    self._lib = lib
                     self._fn = fn
         return self._fn
+
+    def mapped_address(self, host_ptr: int) -> int:
+        """The device-mapped address of the pinned host memory at
+        `host_ptr`, through which this kernel writes a host output
+        (`host_device_pointer` in the kernel's source). Raises for memory
+        the card cannot map (pageable), before any launch."""
+        self.fn()
+        lookup = self._lib.host_device_pointer
+        lookup.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lookup.restype = ctypes.c_int
+        out = ctypes.c_void_p()
+        code = lookup(host_ptr, ctypes.byref(out))
+        if code != 0:
+            msg = self._error_string(code).decode()
+            raise RuntimeError(
+                f"CUDA kernel {self.name}: the host buffer at "
+                f"{host_ptr:#x} is not mapped for the card (pinned memory "
+                f"is): {msg} (cudaError {code})")
+        return out.value
 
     def launch(self, *args) -> None:
         """Call the entry point (it launches on the given stream and

@@ -22,6 +22,22 @@
 // version launches about ten small PyTorch kernels. The plain version is
 // `_sample_logp_plain` in models/distributions.py.
 //
+// The step record: the local-mode sampler needs every env step's actions,
+// logp, logits (the policy's ACTION_DIST_INPUTS) and value on the host.
+// Given a record in pinned host memory (its device-mapped address, which
+// the wrapper resolves once per buffer through `host_device_pointer`),
+// the kernel also writes there, beside its device outputs: lane 0 of each
+// row's warp the int64 action, the f32 logp and the row's f32 value (read
+// from `value`; the column is left as it is when no value is given), and
+// every lane its share of the row's logits, which the warp has just read. Layout, for B rows of A logits, back to
+// back: actions int64 [B] | logp f32 [B] | value f32 [B] | logits f32
+// [B, A]. That replaces four device-to-host copies (and the host sync
+// each makes) per env step with one wait on an event recorded after the
+// launch. The cost moves to the device: the kernel ends only after its
+// PCIe writes (20 + 4A bytes per row, 1.4 KB at B=32, A=6, in 4-byte
+// stores of one warp), which took K2k's launch from 1.7 to 2.7 us with
+// its 4-byte wire output; the bound counts these bytes like any output.
+//
 // K2k, `categorical_sample_k`: the k-step form. Replaces the `lax.scan`
 // over `jax.random.split(rng, k)` in `select_fn`
 // (ray_tpu/rllib/evaluation/device_sampler.py `_build_fns`): k draws per
@@ -54,15 +70,17 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 4;
 
 // One warp draws one action from one row of logits l[0..A) with the
-// uniforms ur[0..A) (ignored unless exploring) and writes the action and
-// its logp. Both kernels below run this same code, so the k-step kernel
-// at k=1 picks exactly what the single-step kernel picks.
-__device__ __forceinline__ void sample_row(const float* __restrict__ l,
+// uniforms ur[0..A) (ignored unless exploring); the result is valid on
+// lane 0. Both kernels below run this same code, so the k-step kernel at
+// k=1 picks exactly what the single-step kernel picks.
+struct Draw {
+  int action;
+  float logp;
+};
+
+__device__ __forceinline__ Draw sample_row(const float* __restrict__ l,
                                            const float* __restrict__ ur,
-                                           int A, int explore, int lane,
-                                           int64_t* __restrict__ action,
-                                           float* __restrict__ logp,
-                                           int32_t* __restrict__ wire) {
+                                           int A, int explore, int lane) {
   float best = -INFINITY;
   int best_j = A;  // larger than any real index: loses every tie
   float m = -INFINITY;
@@ -95,24 +113,46 @@ __device__ __forceinline__ void sample_row(const float* __restrict__ l,
   for (int off = kWarp / 2; off > 0; off /= 2)
     s += __shfl_xor_sync(0xffffffffu, s, off);
 
-  if (lane == 0) {
-    *action = best_j;
-    *logp = (l[best_j] - m) - logf(s);
-    if (wire != nullptr) *wire = best_j;
-  }
+  Draw d{best_j, 0.0f};
+  if (lane == 0) d.logp = (l[best_j] - m) - logf(s);
+  return d;
 }
 
-__global__ void categorical_sample_kernel(const float* __restrict__ logits,
-                                          const float* __restrict__ u,
-                                          int64_t* __restrict__ actions,
-                                          float* __restrict__ logp, int B,
-                                          int A, int explore) {
+// `record`: null, or the device-mapped address of a step record of B
+// rows (layout in the note above); `value`: null, or f32 [B] on the
+// device, the record's value column.
+__global__ void categorical_sample_kernel(
+    const float* __restrict__ logits, const float* __restrict__ u,
+    int64_t* __restrict__ actions, float* __restrict__ logp,
+    const float* __restrict__ value, char* __restrict__ record, int B, int A,
+    int explore) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   if (row >= B) return;  // whole warps leave together
-  sample_row(logits + static_cast<size_t>(row) * A,
-             explore ? u + static_cast<size_t>(row) * A : nullptr, A,
-             explore, lane, actions + row, logp + row, nullptr);
+  const float* l = logits + static_cast<size_t>(row) * A;
+  // Issued before the draw, so its latency hides behind the row's loads.
+  const float v =
+      (record != nullptr && value != nullptr && lane == 0) ? value[row] : 0.0f;
+  const Draw d =
+      sample_row(l, explore ? u + static_cast<size_t>(row) * A : nullptr, A,
+                 explore, lane);
+  if (lane == 0) {
+    actions[row] = d.action;
+    logp[row] = d.logp;
+  }
+  if (record == nullptr) return;
+  int64_t* rec_actions = reinterpret_cast<int64_t*>(record);
+  float* rec_logp =
+      reinterpret_cast<float*>(record + 8 * static_cast<size_t>(B));
+  float* rec_value = rec_logp + B;
+  float* rec_logits = rec_value + B;
+  if (lane == 0) {
+    rec_actions[row] = d.action;
+    rec_logp[row] = d.logp;
+    if (value != nullptr) rec_value[row] = v;
+  }
+  float* out = rec_logits + static_cast<size_t>(row) * A;
+  for (int j = lane; j < A; j += kWarp) out[j] = l[j];
 }
 
 // k draws per row from one distribution (the Sebulba selection window):
@@ -131,23 +171,41 @@ __global__ void categorical_sample_k_kernel(const float* __restrict__ logits,
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / kWarp;
   if (r >= static_cast<long long>(k) * N) return;  // whole warps leave
   const int n = static_cast<int>(r % N);
-  sample_row(logits + static_cast<size_t>(n) * A,
-             explore ? u + static_cast<size_t>(r) * A : nullptr, A, explore,
-             lane, actions + r, logp + r,
-             wire != nullptr ? wire + r : nullptr);
+  const Draw d = sample_row(logits + static_cast<size_t>(n) * A,
+                            explore ? u + static_cast<size_t>(r) * A : nullptr,
+                            A, explore, lane);
+  if (lane == 0) {
+    actions[r] = d.action;
+    logp[r] = d.logp;
+    if (wire != nullptr) wire[r] = d.action;
+  }
 }
 
 }  // namespace
 
+// `record`: null, or the device-mapped address (from
+// `host_device_pointer`) of a pinned step record of B rows and A logits.
 extern "C" int categorical_sample(const float* logits, const float* u,
-                                  int64_t* actions, float* logp, int B, int A,
-                                  int explore, void* stream) {
+                                  int64_t* actions, float* logp,
+                                  const float* value, void* record, int B,
+                                  int A, int explore, void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
   categorical_sample_kernel<<<blocks, kRowsPerBlock * kWarp, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      logits, u, actions, logp, B, A, explore);
+      logits, u, actions, logp, value, static_cast<char*>(record), B, A,
+      explore);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device-mapped address of pinned host memory at `host`, into
+// `*device`. Memory the card cannot map (pageable) returns the error;
+// it is then also this library's last runtime error, so it is cleared,
+// or the next launch here would report it as its own.
+extern "C" int host_device_pointer(void* host, void** device) {
+  const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 // `host_actions`: null, or a pinned (page-locked) host buffer of k * N

@@ -42,6 +42,15 @@
 // shuffles in registers; the backward has no reduction and takes one
 // thread per element. Each is one launch where the plain version launches
 // about twenty small PyTorch kernels.
+//
+// The acted actions: SAC's env step needs its [B, d] actions on the host.
+// Given the device-mapped address of a pinned f32 [B, d] host buffer
+// (resolved once per buffer by the wrapper through `host_device_pointer`),
+// the lane that writes an action to the device output also writes it
+// there, so the step's tail is the normals and this launch, followed by
+// one wait on an event recorded after it, instead of a device-to-host
+// copy and the host sync it makes. The kernel then ends after its PCIe
+// writes (4 bytes per element); the bound counts them like any output.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,8 +79,9 @@ __device__ __forceinline__ float softplus(float m) {
 
 __global__ void squashed_gaussian_sample_kernel(
     const float* __restrict__ x, const float* __restrict__ z,
-    float* __restrict__ actions, float* __restrict__ logp, int B, int d,
-    int explore, float low, float s, float d_log_s) {
+    float* __restrict__ actions, float* __restrict__ logp,
+    float* __restrict__ host_actions, int B, int d, int explore, float low,
+    float s, float d_log_s) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   if (row >= B) return;  // whole warps leave together
@@ -90,7 +100,10 @@ __global__ void squashed_gaussian_sample_kernel(
       const float pre =
           explore ? __fadd_rn(mean, __fmul_rn(expf(log_std), zj)) : mean;
       const float t = tanhf(pre);
-      a_out[j] = __fadd_rn(low, __fmul_rn(__fadd_rn(t, 1.0f), s));
+      const float a = __fadd_rn(low, __fmul_rn(__fadd_rn(t, 1.0f), s));
+      a_out[j] = a;
+      if (host_actions != nullptr)
+        host_actions[static_cast<size_t>(row) * d + j] = a;
       const float gauss = __fadd_rn(
           __fadd_rn(__fmul_rn(zj, zj), __fmul_rn(2.0f, log_std)), kLog2Pi);
       const float logdet =
@@ -135,16 +148,19 @@ __global__ void squashed_gaussian_backward_kernel(
 
 }  // namespace
 
+// `host_actions`: null, or the device-mapped address (from
+// `host_device_pointer`) of a pinned f32 [B, d] host buffer that also
+// receives the actions.
 extern "C" int squashed_gaussian_sample(const float* x, const float* z,
-                                        float* actions, float* logp, int B,
-                                        int d, int explore, float low,
-                                        float s, float d_log_s,
-                                        void* stream) {
+                                        float* actions, float* logp,
+                                        float* host_actions, int B, int d,
+                                        int explore, float low, float s,
+                                        float d_log_s, void* stream) {
   if (B <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
   squashed_gaussian_sample_kernel<<<blocks, kRowsPerBlock * kWarp, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-      x, z, actions, logp, B, d, explore, low, s, d_log_s);
+      x, z, actions, logp, host_actions, B, d, explore, low, s, d_log_s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,6 +177,16 @@ extern "C" int squashed_gaussian_backward(const float* x, const float* z,
                                       static_cast<cudaStream_t>(stream)>>>(
       x, z, g_a, g_logp, g_x, B, d, explore, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device-mapped address of pinned host memory at `host`, into
+// `*device`. Memory the card cannot map (pageable) returns the error;
+// it is then also this library's last runtime error, so it is cleared,
+// or the next launch here would report it as its own.
+extern "C" int host_device_pointer(void* host, void** device) {
+  const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -25,8 +25,15 @@ loss differentiates it: `SquashedGaussianTail` is an autograd function
 whose forward is the kernel K9f and whose backward is K9b, both in
 `csrc/squashed_gaussian.cu`, with the plain versions
 `_squashed_gaussian_plain` and `_squashed_gaussian_backward_plain`.
+Where no gradient is needed the tail goes to K9f directly.
 `SquashedGaussian.logp` and `entropy` stay plain PyTorch (no path calls
 them).
+
+Per-step host outputs: K2 fills a `StepRecord` (the step's actions,
+logp, value and logits) and K9f an `ActionRecord` (its actions) in
+pinned host memory, through the buffer's device-mapped address, beside
+their device outputs; on the CPU the plain versions fill the same
+records by copy.
 """
 
 from __future__ import annotations
@@ -40,13 +47,15 @@ import torch
 
 from .._private.cuda_build import (CudaKernel, device_stream_handle,
                                    stream_handle)
-from ..rllib.env.spaces import Box, Discrete
+from ..rllib.env.spaces import Box, Discrete, MultiDiscrete
 
-# K2: one warp per row; see the source note in csrc/categorical.cu.
+# K2: one warp per row, with the optional step record in pinned host
+# memory; see the source note in csrc/categorical.cu.
 CATEGORICAL_KERNEL = CudaKernel(
     "categorical", "categorical.cu", "categorical_sample",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p])
 
 # K2k: the k-step form, one warp per (draw, row), with the optional
 # int32 wire actions in pinned host memory; same source note.
@@ -68,8 +77,8 @@ DIAG_GAUSSIAN_KERNEL = CudaKernel(
 SQUASHED_GAUSSIAN_KERNEL = CudaKernel(
     "squashed_gaussian", "squashed_gaussian.cu", "squashed_gaussian_sample",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 SQUASHED_GAUSSIAN_BACKWARD_KERNEL = CudaKernel(
     "squashed_gaussian_backward", "squashed_gaussian.cu",
     "squashed_gaussian_backward",
@@ -78,6 +87,97 @@ SQUASHED_GAUSSIAN_BACKWARD_KERNEL = CudaKernel(
      ctypes.c_float, ctypes.c_void_p])
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+class HostRecord:
+    """A host buffer that a kernel fills beside its device outputs,
+    through the buffer's device-mapped address: pinned when `pin` (for a
+    CUDA device), pageable otherwise (for the CPU, where the plain
+    versions fill it by copy; a kernel refuses it). The mapped address is
+    resolved once, at the first launch that writes the buffer. The
+    kernel's writes are complete once `record_done`'s event, recorded
+    after the launch, has completed: `wait` waits for it.
+
+    One record serves one caller at a time: a launch that writes it
+    while an earlier one's values are still being read overwrites them.
+    """
+
+    def __init__(self, nbytes: int, pin: bool):
+        self.buffer = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        self._address = None
+        self._event = torch.cuda.Event() if pin else None
+        self._offset = 0
+
+    def _column(self, dtype: torch.dtype, shape: Tuple[int, ...]
+                ) -> torch.Tensor:
+        """The next `shape` column of `dtype`, after the earlier ones."""
+        nbytes = int(np.prod(shape)) * torch.empty(
+            0, dtype=dtype).element_size()
+        start, self._offset = self._offset, self._offset + nbytes
+        return self.buffer[start:self._offset].view(dtype).view(shape)
+
+    def address(self, kernel: CudaKernel) -> int:
+        """The buffer's device-mapped address (raises for pageable
+        memory, before any launch)."""
+        if self._address is None:
+            self._address = kernel.mapped_address(self.buffer.data_ptr())
+        return self._address
+
+    def record_done(self, device: torch.device) -> None:
+        """Mark the end of the work queued so far on `device`'s current
+        stream (the launch that writes the record); nothing on the CPU."""
+        if self._event is not None:
+            self._event.record(torch.cuda.current_stream(device))
+
+    def wait(self) -> None:
+        """Wait until `record_done`'s mark has completed."""
+        if self._event is not None:
+            self._event.synchronize()
+
+
+class StepRecord(HostRecord):
+    """K2's step record for B rows of A logits, back to back in the
+    order `csrc/categorical.cu` writes them: `actions` int64 [B], `logp`
+    f32 [B], `value` f32 [B] and `logits` f32 [B, A] (torch views of
+    the buffer; `numpy` holds numpy views of the four, in that order)."""
+
+    def __init__(self, B: int, A: int, pin: bool):
+        super().__init__(B * (8 + 4 + 4 + 4 * A), pin)
+        self.shape = (B, A)
+        self.actions = self._column(torch.int64, (B,))
+        self.logp = self._column(torch.float32, (B,))
+        self.value = self._column(torch.float32, (B,))
+        self.logits = self._column(torch.float32, (B, A))
+        self.numpy = tuple(t.numpy() for t in (
+            self.actions, self.logp, self.value, self.logits))
+
+    def columns(self) -> Tuple[np.ndarray, ...]:
+        """Wait for the kernel's writes, then copies of (actions, logp,
+        value, logits): the record is reused by the next step."""
+        self.wait()
+        return tuple(a.copy() for a in self.numpy)
+
+
+class ActionRecord(HostRecord):
+    """K9f's host output: `actions` f32 [B, d] (a torch view; `numpy`
+    its numpy view)."""
+
+    def __init__(self, B: int, d: int, pin: bool):
+        super().__init__(4 * B * d, pin)
+        self.shape = (B, d)
+        self.actions = self._column(torch.float32, (B, d))
+        self.numpy = self.actions.numpy()
+
+    def columns(self) -> np.ndarray:
+        """Wait for the kernel's writes, then a copy of the actions."""
+        self.wait()
+        return self.numpy.copy()
+
+
+def _check_record(record, cls, shape) -> None:
+    if not isinstance(record, cls) or record.shape != shape:
+        raise ValueError(f"record must be a {cls.__name__} of shape "
+                         f"{shape}, got {record!r}")
 
 
 def _sample_logp_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
@@ -96,49 +196,84 @@ def _sample_logp_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
 
 
 def _sample_logp_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
-                      explore: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                      explore: bool, value: Optional[torch.Tensor] = None,
+                      record: Optional[StepRecord] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on [B, A] f32 logits (and [B, A] f32 uniforms when
-    exploring). Allocates the int64 actions and f32 logp outputs."""
+    exploring). Allocates the int64 actions and f32 logp outputs. With
+    `record` (a pinned StepRecord of [B, A]), the kernel also writes the
+    actions, logp and logits there, and `value` (f32 [B] on the logits'
+    device) into its value column."""
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError(f"categorical kernel takes [B, A] float32 logits, "
                          f"got {tuple(logits.shape)} {logits.dtype}")
     if not logits.is_contiguous():
         raise ValueError("categorical kernel takes contiguous logits")
     B, A = logits.shape
+    index = logits.get_device()
     if explore:
         if u is None or u.shape != logits.shape \
-                or u.dtype != torch.float32 or u.device != logits.device:
+                or u.dtype != torch.float32 or u.get_device() != index:
             raise ValueError(
                 "exploring needs float32 uniforms shaped like the logits "
                 "on the same device")
         if not u.is_contiguous():
             raise ValueError("categorical kernel takes contiguous uniforms")
+    address = None
+    if record is not None:
+        _check_record(record, StepRecord, (B, A))
+        address = record.address(CATEGORICAL_KERNEL)
+    if value is not None and (
+            record is None or value.shape != (B,)
+            or value.dtype != torch.float32 or value.get_device() != index
+            or not value.is_contiguous()):
+        raise ValueError("value goes into a record: a contiguous float32 "
+                         "[B] tensor on the logits' device")
     actions = torch.empty(B, dtype=torch.int64, device=logits.device)
     logp = torch.empty(B, dtype=torch.float32, device=logits.device)
     CATEGORICAL_KERNEL.launch(
         logits.data_ptr(), u.data_ptr() if explore else None,
-        actions.data_ptr(), logp.data_ptr(), B, A, int(bool(explore)),
-        stream_handle(logits))
+        actions.data_ptr(), logp.data_ptr(),
+        value.data_ptr() if value is not None else None, address, B, A,
+        1 if explore else 0, device_stream_handle(index))
     return actions, logp
 
 
 def sample_logp(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
-                explore: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                explore: bool = True, *,
+                value: Optional[torch.Tensor] = None,
+                record: Optional[StepRecord] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(actions int64[...], logp f32[...]) for logits [..., A].
+
+    With `record`, a StepRecord of the [B, A] logits' shape (pinned for
+    CUDA logits), the record also gets the actions, the logp and the
+    logits, and `value` (f32 [B], optional) its value column: written by
+    K2 on the card (complete after `record.record_done` and
+    `record.wait`), copied in on the CPU.
 
     CUDA tensors launch the K2 kernel (or raise); CPU tensors take the
     plain version. No gradient flows: sampling has none."""
-    with torch.no_grad():
-        if logits.device.type == "cpu":
-            return _sample_logp_plain(logits, u, explore)
-        if logits.device.type != "cuda":
-            raise ValueError(f"no categorical kernel for {logits.device}")
-        lead = logits.shape[:-1]
-        A = logits.shape[-1]
-        flat_u = u.reshape(-1, A) if u is not None else None
+    if logits.is_cuda:
+        if logits.dim() == 2 or record is not None:
+            return _sample_logp_cuda(logits, u, explore, value, record)
+        lead, A = logits.shape[:-1], logits.shape[-1]
         actions, logp = _sample_logp_cuda(
-            logits.reshape(-1, A), flat_u, explore)
+            logits.reshape(-1, A), None if u is None else u.reshape(-1, A),
+            explore)
         return actions.reshape(lead), logp.reshape(lead)
+    if not logits.is_cpu:
+        raise ValueError(f"no categorical kernel for {logits.device}")
+    with torch.no_grad():
+        actions, logp = _sample_logp_plain(logits, u, explore)
+        if record is not None:
+            _check_record(record, StepRecord, tuple(logits.shape))
+            record.actions.copy_(actions)
+            record.logp.copy_(logp)
+            record.logits.copy_(logits)
+            if value is not None:
+                record.value.copy_(value)
+    return actions, logp
 
 
 def _sample_logp_k_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
@@ -367,6 +502,18 @@ def _squashed_gaussian_backward_plain(
     return torch.cat([g_pre, g_raw], dim=-1)
 
 
+class SquashedTail:
+    """The constants of one squashed-Gaussian tail over a d-dim box
+    [low, high]: the half-range s = (high - low) / 2 and d log s (the
+    logp's log-det of the rescale), computed once (a SAC policy holds
+    one) instead of at every launch."""
+
+    def __init__(self, low: float, high: float, d: int):
+        self.low, self.high, self.d = float(low), float(high), int(d)
+        self.s = (self.high - self.low) / 2.0
+        self.d_log_s = self.d * math.log(self.s)
+
+
 def _check_squashed_inputs(x: torch.Tensor, z: Optional[torch.Tensor],
                            explore: bool) -> Tuple[int, int]:
     """(B, d) of K9's [B, 2d] f32 inputs; raises on what it cannot take."""
@@ -378,11 +525,35 @@ def _check_squashed_inputs(x: torch.Tensor, z: Optional[torch.Tensor],
     B, d = x.shape[0], x.shape[1] // 2
     if explore:
         if z is None or z.shape != (B, d) or z.dtype != torch.float32 \
-                or z.device != x.device or not z.is_contiguous():
+                or z.get_device() != x.get_device() or not z.is_contiguous():
             raise ValueError(
                 f"exploring needs contiguous float32 normals of shape "
                 f"{(B, d)} on the inputs' device")
     return B, d
+
+
+def _squashed_cuda(x: torch.Tensor, z: Optional[torch.Tensor],
+                   tail: SquashedTail, explore: bool,
+                   host: Optional[ActionRecord] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K9f on [B, 2d] f32 inputs (and [B, d] f32 normals when
+    exploring). Allocates the f32 [B, d] actions and [B] logp; `host`, a
+    pinned ActionRecord of [B, d], also receives the actions."""
+    B, d = _check_squashed_inputs(x, z, explore)
+    if d != tail.d:
+        raise ValueError(f"squashed_gaussian: inputs of d={d} for a tail "
+                         f"of d={tail.d}")
+    address = None
+    if host is not None:
+        _check_record(host, ActionRecord, (B, d))
+        address = host.address(SQUASHED_GAUSSIAN_KERNEL)
+    actions = torch.empty((B, d), dtype=torch.float32, device=x.device)
+    logp = torch.empty(B, dtype=torch.float32, device=x.device)
+    SQUASHED_GAUSSIAN_KERNEL.launch(
+        x.data_ptr(), z.data_ptr() if explore else None, actions.data_ptr(),
+        logp.data_ptr(), address, B, d, 1 if explore else 0, tail.low,
+        tail.s, tail.d_log_s, device_stream_handle(x.get_device()))
+    return actions, logp
 
 
 def _squashed_gaussian_cuda(x: torch.Tensor, z: Optional[torch.Tensor],
@@ -390,14 +561,26 @@ def _squashed_gaussian_cuda(x: torch.Tensor, z: Optional[torch.Tensor],
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K9f on [B, 2d] f32 inputs (and [B, d] f32 normals when
     exploring). Allocates the f32 [B, d] actions and [B] logp."""
-    B, d = _check_squashed_inputs(x, z, explore)
-    s = (high - low) / 2.0
-    actions = torch.empty(B, d, dtype=torch.float32, device=x.device)
-    logp = torch.empty(B, dtype=torch.float32, device=x.device)
-    SQUASHED_GAUSSIAN_KERNEL.launch(
-        x.data_ptr(), z.data_ptr() if explore else None, actions.data_ptr(),
-        logp.data_ptr(), B, d, int(bool(explore)), low, s,
-        d * math.log(s), stream_handle(x))
+    return _squashed_cuda(x, z, SquashedTail(low, high, x.shape[-1] // 2),
+                          explore)
+
+
+def _squashed_forward(x: torch.Tensor, z: Optional[torch.Tensor],
+                      tail: SquashedTail, explore: bool,
+                      host: Optional[ActionRecord] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9f on CUDA tensors (or raise), the plain version on CPU ones
+    (`host` then filled by copy)."""
+    if x.is_cuda:
+        return _squashed_cuda(x, z, tail, explore, host)
+    if not x.is_cpu:
+        raise ValueError(f"no squashed_gaussian kernel for {x.device}")
+    actions, logp = _squashed_gaussian_plain(x, z, tail.low, tail.high,
+                                             explore)
+    if host is not None:
+        _check_record(host, ActionRecord, tuple(actions.shape))
+        with torch.no_grad():
+            host.actions.copy_(actions)
     return actions, logp
 
 
@@ -408,9 +591,10 @@ def _squashed_gaussian_backward_cuda(
     """Launch K9b: x [B, 2d], z [B, d] (when exploring), g_a [B, d] and
     g_logp [B] (each f32 and contiguous, or None). Allocates g_x."""
     B, d = _check_squashed_inputs(x, z, explore)
+    index = x.get_device()
     for g, shape in ((g_a, (B, d)), (g_logp, (B,))):
         if g is not None and (g.shape != shape or g.dtype != torch.float32
-                              or g.device != x.device
+                              or g.get_device() != index
                               or not g.is_contiguous()):
             raise ValueError(f"squashed_gaussian backward takes contiguous "
                              f"float32 gradients of shape {shape} on the "
@@ -420,7 +604,8 @@ def _squashed_gaussian_backward_cuda(
         x.data_ptr(), z.data_ptr() if explore else None,
         g_a.data_ptr() if g_a is not None else None,
         g_logp.data_ptr() if g_logp is not None else None, g_x.data_ptr(),
-        B, d, int(bool(explore)), (high - low) / 2.0, stream_handle(x))
+        B, d, 1 if explore else 0, (high - low) / 2.0, device_stream_handle(
+            index))
     return g_x
 
 
@@ -428,18 +613,15 @@ class SquashedGaussianTail(torch.autograd.Function):
     """(actions, logp) = the squashed-Gaussian tail of x [B, 2d], with a
     gradient to x. On CUDA tensors the forward launches K9f and the
     backward K9b (or raises); on CPU tensors they are the two plain
-    functions. z, low, high and explore get no gradient."""
+    functions. z, the tail's constants, explore and the host output get
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, x, z, low, high, explore):
+    def forward(ctx, x, z, tail, explore, host):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, z)
-        ctx.args = (low, high, explore)
-        if x.device.type == "cpu":
-            return _squashed_gaussian_plain(x, z, low, high, explore)
-        if x.device.type != "cuda":
-            raise ValueError(f"no squashed_gaussian kernel for {x.device}")
-        return _squashed_gaussian_cuda(x, z, low, high, explore)
+        ctx.args = (tail.low, tail.high, explore)
+        return _squashed_forward(x, z, tail, explore, host)
 
     @staticmethod
     def backward(ctx, g_a, g_logp):
@@ -450,31 +632,45 @@ class SquashedGaussianTail(torch.autograd.Function):
         # concat, an expand from a mean); the kernel takes dense rows.
         g_a = None if g_a is None else g_a.contiguous()
         g_logp = None if g_logp is None else g_logp.contiguous()
-        if x.device.type == "cpu":
-            g_x = _squashed_gaussian_backward_plain(x, z, g_a, g_logp,
-                                                    *ctx.args)
-        else:
+        if x.is_cuda:
             g_x = _squashed_gaussian_backward_cuda(x, z, g_a, g_logp,
                                                    *ctx.args)
+        else:
+            g_x = _squashed_gaussian_backward_plain(x, z, g_a, g_logp,
+                                                    *ctx.args)
         return g_x, None, None, None, None
 
 
 def squashed_gaussian_sample_logp(x: torch.Tensor,
                                   z: Optional[torch.Tensor] = None,
                                   low: float = -1.0, high: float = 1.0,
-                                  explore: bool = True
+                                  explore: bool = True, *,
+                                  tail: Optional[SquashedTail] = None,
+                                  host_actions: Optional[ActionRecord] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(actions f32 [B, d] in [low, high], logp f32 [B]) for the actor's
     output x [B, 2d] = [mean, raw log_std]: tanh(mean + std * z) rescaled
     when exploring, tanh(mean) rescaled otherwise (z is not read).
 
-    Goes through `SquashedGaussianTail`: CUDA tensors launch K9f (and
-    K9b for the gradient, when x requires one) or raise; CPU tensors take
-    the plain versions."""
-    if explore and z is None:
+    `tail`, the SquashedTail of (low, high, d) made once by the caller,
+    takes the place of `low` and `high`. `host_actions`, an ActionRecord
+    of [B, d] (pinned for CUDA inputs), also receives the actions:
+    written by K9f on the card (complete after `record_done` and
+    `wait`), copied in on the CPU.
+
+    Where x needs a gradient this goes through `SquashedGaussianTail`
+    (K9f forward, K9b backward); otherwise straight to K9f. CUDA tensors
+    launch the kernels or raise; CPU tensors take the plain versions."""
+    if not explore:
+        z = None
+    elif z is None:
         raise ValueError("exploring needs the [B, d] normals z")
-    return SquashedGaussianTail.apply(x, z if explore else None, float(low),
-                                      float(high), bool(explore))
+    if tail is None:
+        tail = SquashedTail(low, high, x.shape[-1] // 2)
+    explore = bool(explore)
+    if x.requires_grad and torch.is_grad_enabled():
+        return SquashedGaussianTail.apply(x, z, tail, explore, host_actions)
+    return _squashed_forward(x, z, tail, explore, host_actions)
 
 
 class Categorical:
@@ -484,15 +680,22 @@ class Categorical:
         self.inputs = inputs
 
     def sample_with_logp(self, generator: Optional[torch.Generator] = None,
-                         explore: bool = True):
+                         explore: bool = True, *,
+                         value: Optional[torch.Tensor] = None,
+                         record: Optional[StepRecord] = None):
         """Draw actions and their logp in one pass (K2 on the card).
-        The uniforms come from `generator` on the logits' device."""
+        The uniforms come from `generator` on the logits' device.
+        `value` and `record`: the step record (see `sample_logp`)."""
+        logits = self.inputs
+        if logits.requires_grad:
+            logits = logits.detach()
+        if logits.dtype != torch.float32 or not logits.is_contiguous():
+            logits = logits.float().contiguous()
         u = None
         if explore:
-            u = torch.rand(self.inputs.shape, generator=generator,
-                           dtype=torch.float32, device=self.inputs.device)
-        return sample_logp(self.inputs.detach().float().contiguous(), u,
-                           explore)
+            u = torch.rand(logits.shape, generator=generator,
+                           dtype=torch.float32, device=logits.device)
+        return sample_logp(logits, u, explore, value=value, record=record)
 
     def sample_k_with_logp(self, generator: Optional[torch.Generator],
                            k: int, explore: bool = True,
@@ -646,12 +849,13 @@ class SquashedGaussian:
 
 def get_action_dist(action_space):
     """Map a space to (dist_class, required_input_dim) — parity:
-    `ModelCatalog.get_action_dist` (`rllib/models/catalog.py:109`).
-    MultiDiscrete and the other spaces wait for later slices."""
+    `ModelCatalog.get_action_dist` (`rllib/models/catalog.py:109`), with
+    the reference's errors: NotImplementedError for MultiDiscrete,
+    ValueError for any other space."""
     if isinstance(action_space, Discrete):
         return Categorical, action_space.n
     if isinstance(action_space, Box):
         return DiagGaussian, DiagGaussian.required_input_dim(action_space)
-    raise NotImplementedError(
-        f"action space {action_space} is not ported yet (Discrete and "
-        "Box only)")
+    if isinstance(action_space, MultiDiscrete):
+        raise NotImplementedError("MultiDiscrete dist: use a Tuple policy")
+    raise ValueError(f"unsupported action space {action_space}")

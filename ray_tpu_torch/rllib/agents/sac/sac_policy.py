@@ -15,7 +15,10 @@ entropy-temperature tuning against a target entropy.
   logp`: kernel K9f on the card, and K9b for the actor loss's gradient.
   It runs twice per update (the critic's target with no gradient, the
   actor loss with one), once per `compute_td_error` and once per acted
-  env step after `pure_exploration_steps`.
+  env step after `pure_exploration_steps`. Its constants (`SquashedTail`)
+  are made once. An acted step's K9f also writes the actions into a
+  pinned host output of the calling thread (`ActionRecord`), and the
+  host waits once for it.
 - One update (`learn_with_td`) in the JAX order (`sac_policy.py:202-
   235`): the critic step against the target critic and the pre-update
   actor and alpha, then the actor step against the updated critic with
@@ -43,7 +46,8 @@ import torch
 
 from ....device import resolve_device
 from ....models import catalog
-from ....models.distributions import squashed_gaussian_sample_logp
+from ....models.distributions import (ActionRecord, SquashedTail,
+                                      squashed_gaussian_sample_logp)
 from ....models.networks import ContinuousQNetwork, StochasticActor
 from ... import sample_batch as sb
 from ...policy.policy import Policy
@@ -148,7 +152,11 @@ class SACPolicy(Policy):
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._np_rng = np.random.RandomState(seed)
+        self._tail_constants = SquashedTail(self.low, self.high,
+                                            self.action_dim)
         self._update_lock = threading.Lock()
+        # Per-thread host outputs of the acted steps (`_act_record`).
+        self._records = threading.local()
         self._update_count = 0
         self.global_timestep = 0
 
@@ -160,10 +168,26 @@ class SACPolicy(Policy):
                 + sum(p.numel() for p in self.critic.parameters()) + 1)
 
     def _tail(self, obs: torch.Tensor, z: Optional[torch.Tensor],
-              explore: bool = True):
-        """(actions, logp) of the actor at `obs`: K9f on the card."""
-        return squashed_gaussian_sample_logp(self.actor(obs), z, self.low,
-                                             self.high, explore)
+              explore: bool = True,
+              host_actions: Optional[ActionRecord] = None):
+        """(actions, logp) of the actor at `obs`: K9f on the card (and
+        K9b for a gradient); `host_actions` also gets the actions."""
+        return squashed_gaussian_sample_logp(
+            self.actor(obs), z, explore=explore, tail=self._tail_constants,
+            host_actions=host_actions)
+
+    def _act_record(self, rows: int) -> ActionRecord:
+        """This thread's host output for `rows` acted actions (pinned on
+        a CUDA device): no two callers in flight share one, and each
+        gets a copy of it."""
+        records = getattr(self._records, "by_rows", None)
+        if records is None:
+            records = self._records.by_rows = {}
+        record = records.get(rows)
+        if record is None:
+            record = records[rows] = ActionRecord(
+                rows, self.action_dim, pin=self.device.type == "cuda")
+        return record
 
     def _normals(self, rows: int) -> torch.Tensor:
         return torch.randn((rows, self.action_dim), generator=self.generator,
@@ -193,11 +217,15 @@ class SACPolicy(Policy):
                 self.low, self.high,
                 (len(obs_batch), self.action_dim)).astype(np.float32)
         else:
+            # The normals, the actor and K9f, which also writes the
+            # actions into this thread's pinned host output; one wait.
             obs = to_device(obs_batch, self.device)
+            record = self._act_record(obs.shape[0])
             with self._update_lock, torch.no_grad():
                 z = self._normals(obs.shape[0]) if explore else None
-                actions, _ = self._tail(obs, z, explore)
-            actions = actions.cpu().numpy()
+                self._tail(obs, z, explore, host_actions=record)
+                record.record_done(self.device)
+            actions = record.columns()
         self.global_timestep += len(actions)
         return actions, [], {}
 

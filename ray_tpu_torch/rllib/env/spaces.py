@@ -1,7 +1,8 @@
 """Observation/action space types.
 
 The port's own copy of `ray_tpu/rllib/env/spaces.py` (numpy only),
-trimmed to the spaces this slice's envs use: Box and Discrete.
+trimmed to the spaces this slice's envs use, Box and Discrete, and
+MultiDiscrete, which `get_action_dist` refuses as the reference does.
 """
 
 from __future__ import annotations
@@ -81,3 +82,28 @@ class Discrete(Space):
 
     def __eq__(self, other):
         return isinstance(other, Discrete) and other.n == self.n
+
+
+class MultiDiscrete(Space):
+    """A vector of Discrete spaces of sizes `nvec` (parity:
+    gym.spaces.MultiDiscrete)."""
+
+    def __init__(self, nvec):
+        self.nvec = np.asarray(nvec, dtype=np.int64)
+        self.dtype = np.dtype(np.int64)
+
+    @property
+    def shape(self):
+        return self.nvec.shape
+
+    def sample(self, rng=None):
+        rng = rng or np.random.default_rng()
+        return (rng.random(self.nvec.shape) * self.nvec).astype(np.int64)
+
+    def contains(self, x) -> bool:
+        x = np.asarray(x)
+        return x.shape == self.nvec.shape and bool(
+            np.all(x >= 0) and np.all(x < self.nvec))
+
+    def __repr__(self):
+        return f"MultiDiscrete({self.nvec.tolist()})"

@@ -173,6 +173,122 @@ def test_policy_on_the_card_launches_both_kernels(cuda):
     assert next(card.model.parameters()).device.type == "cuda"
 
 
+# K2 with the step record: the local-mode sampler's 32 x 6, PPO Atari's
+# 16 x 6, a wide action set and a single action.
+STEP_RECORD_SHAPES = [(32, 6), (16, 6), (1024, 18), (3, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A", STEP_RECORD_SHAPES)
+@pytest.mark.parametrize("explore", [True, False])
+def test_categorical_step_record_equals_device_outputs(cuda, B, A, explore):
+    """K2 with a pinned step record: the device outputs equal the plain
+    version's (actions exactly, logp within TOL); after the record's
+    event, its actions and logp equal the device outputs and its logits
+    and value columns the device tensors, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(B * A + 5)
+    logits = torch.randn(B, A, generator=gen, device=cuda) * 3.0
+    value = torch.randn(B, generator=gen, device=cuda)
+    u = torch.rand(B, A, generator=gen, device=cuda) if explore else None
+    record = distributions.StepRecord(B, A, pin=True)
+    record.buffer.fill_(0xff)
+    before = distributions.CATEGORICAL_KERNEL.launches
+    actions, logp = distributions.sample_logp(logits, u, explore,
+                                              value=value, record=record)
+    record.record_done(cuda)
+    assert distributions.CATEGORICAL_KERNEL.launches == before + 1
+    got_actions, got_logp, got_value, got_logits = record.columns()
+    want_actions, want_logp = distributions._sample_logp_plain(
+        logits, u, explore)
+    assert torch.equal(actions, want_actions)
+    torch.testing.assert_close(logp, want_logp, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(got_actions, actions.cpu().numpy())
+    assert got_logp.tobytes() == logp.cpu().numpy().tobytes()
+    assert got_value.tobytes() == value.cpu().numpy().tobytes()
+    assert got_logits.tobytes() == logits.cpu().numpy().tobytes()
+
+
+@pytest.mark.gpu
+def test_categorical_step_record_reused_over_many_steps(cuda):
+    """The policy's pattern: one record, many steps in a row on one
+    stream, each step's columns copied out after its event and then
+    overwritten by the next step."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    record = distributions.StepRecord(32, 6, pin=True)
+    for step in range(64):
+        logits = torch.randn(32, 6, generator=gen, device=cuda) * 3.0
+        value = torch.randn(32, generator=gen, device=cuda)
+        u = torch.rand(32, 6, generator=gen, device=cuda)
+        actions, logp = distributions.sample_logp(
+            logits, u, step % 2 == 0, value=value, record=record)
+        record.record_done(cuda)
+        got = record.columns()
+        want = (actions, logp, value, logits)
+        for g, w in zip(got, want):
+            assert g.tobytes() == w.cpu().numpy().tobytes(), step
+
+
+@pytest.mark.gpu
+def test_categorical_step_record_rejects_a_pageable_record(cuda):
+    """A record the card cannot map (pageable memory) fails the call
+    before any launch; the runtime's error does not leak into the next
+    launch; a record of another shape, or a value without a record,
+    raises ValueError."""
+    logits = torch.randn(32, 6, device=cuda)
+    value = torch.randn(32, device=cuda)
+    u = torch.rand(32, 6, device=cuda)
+    before = distributions.CATEGORICAL_KERNEL.launches
+    with pytest.raises(RuntimeError, match="categorical"):
+        distributions.sample_logp(
+            logits, u, True, value=value,
+            record=distributions.StepRecord(32, 6, pin=False))
+    assert distributions.CATEGORICAL_KERNEL.launches == before
+    with pytest.raises(ValueError, match="StepRecord"):
+        distributions.sample_logp(
+            logits, u, True, record=distributions.StepRecord(32, 5,
+                                                             pin=True))
+    with pytest.raises(ValueError, match="value"):
+        distributions._sample_logp_cuda(logits, u, True, value)
+    with pytest.raises(ValueError, match="value"):
+        distributions._sample_logp_cuda(
+            logits, u, True, value[:16],
+            distributions.StepRecord(32, 6, pin=True))
+    a, _ = distributions.sample_logp(logits, u, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, distributions._sample_logp_plain(logits, u,
+                                                           True)[0])
+
+
+@pytest.mark.gpu
+def test_policy_step_record_on_the_card_matches_the_cpu(cuda):
+    """`compute_actions` of a Categorical policy on the card (f32 model,
+    argmax actions) returns the CPU policy's columns, with the same
+    dtypes and shapes, step after step, launching K2 once per step."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import \
+        VTraceTorchPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+    cfg = {"model": {"fcnet_hiddens": [64]}, "seed": 0}
+    space = Box(-1.0, 1.0, (8,))
+    card = VTraceTorchPolicy(space, Discrete(6), dict(cfg, device="cuda"))
+    host = VTraceTorchPolicy(space, Discrete(6), dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    rng = np.random.default_rng(0)
+    k2 = distributions.CATEGORICAL_KERNEL.launches
+    for step in range(20):
+        obs = rng.uniform(-1.0, 1.0, (32, 8)).astype(np.float32)
+        got = card.compute_actions(obs, explore=False)
+        want = host.compute_actions(obs, explore=False)
+        assert got[0].dtype == want[0].dtype == np.int64
+        np.testing.assert_array_equal(got[0], want[0])
+        for k in (sb.ACTION_LOGP, sb.ACTION_DIST_INPUTS, sb.VF_PREDS):
+            assert got[2][k].dtype == want[2][k].dtype == np.float32, k
+            assert got[2][k].shape == want[2][k].shape, k
+            np.testing.assert_allclose(got[2][k], want[2][k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+    assert distributions.CATEGORICAL_KERNEL.launches == k2 + 20
+
+
 # K7 tolerance, stated by the kernel's contract: 1e-6 absolute + 1e-6
 # relative on actions and logp (exp may differ from PyTorch's by an ulp;
 # every other step is the plain version's, in its order).
@@ -444,6 +560,49 @@ def test_squashed_gaussian_backward_kernel_matches_plain(cuda, B, d, grads):
     assert distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches \
         == before + 1
     torch.testing.assert_close(xg.grad, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d", [(1, 1), (256, 1), (4096, 17)])
+@pytest.mark.parametrize("explore", [True, False])
+def test_squashed_gaussian_host_actions_equal_device_actions(cuda, B, d,
+                                                             explore):
+    """K9f with a pinned host output: after its event the host actions
+    equal the device actions bit for bit, over many calls in a row that
+    reuse the output; the device outputs still match the plain version."""
+    host = distributions.ActionRecord(B, d, pin=True)
+    before = distributions.SQUASHED_GAUSSIAN_KERNEL.launches
+    for step in range(16):
+        x, z = _squashed_inputs(B, d, cuda, seed=B * d + step)
+        zz = z if explore else None
+        actions, logp = distributions.squashed_gaussian_sample_logp(
+            x, zz, -2.0, 2.0, explore, host_actions=host)
+        host.record_done(cuda)
+        got = host.columns()
+        assert got.tobytes() == actions.cpu().numpy().tobytes(), step
+    assert distributions.SQUASHED_GAUSSIAN_KERNEL.launches == before + 16
+    want_actions, want_logp = distributions._squashed_gaussian_plain(
+        x, zz, -2.0, 2.0, explore)
+    torch.testing.assert_close(actions, want_actions, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(logp, want_logp, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_squashed_gaussian_rejects_a_pageable_host_output(cuda):
+    x, z = _squashed_inputs(4, 2, cuda, seed=3)
+    before = distributions.SQUASHED_GAUSSIAN_KERNEL.launches
+    with pytest.raises(RuntimeError, match="squashed_gaussian"):
+        distributions.squashed_gaussian_sample_logp(
+            x, z, -1.0, 1.0, host_actions=distributions.ActionRecord(
+                4, 2, pin=False))
+    assert distributions.SQUASHED_GAUSSIAN_KERNEL.launches == before
+    with pytest.raises(ValueError, match="ActionRecord"):
+        distributions.squashed_gaussian_sample_logp(
+            x, z, -1.0, 1.0, host_actions=distributions.ActionRecord(
+                4, 1, pin=True))
+    got, _ = distributions.squashed_gaussian_sample_logp(x, z, -1.0, 1.0)
+    want, _ = distributions._squashed_gaussian_plain(x, z, -1.0, 1.0, True)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.gpu
