@@ -19,11 +19,15 @@ falls back to the CPU):
    after warm-up), plus the kernel's device-only time (profiler). The
    single-step sampling kernel (K2) is also held with its step record
    in pinned host memory (actions, logp, logits and value equal to the
-   device's, bit for bit), and SAC's tail (K9f) with its host actions;
-   the host time of an env step's tail after the forward (K2's from the
-   logits to the four numpy columns, K9f's acting tail from the actor's
-   output to the numpy actions) is timed at the local-mode, PPO Atari
-   and SAC shapes. The k-step sampling kernel at k=1 is also held equal
+   device's, bit for bit), the Box tail (K7) with its step record and no
+   device outputs, the epsilon-greedy tail (K8) with its int64 host
+   actions and no device output, and SAC's tail (K9f) with its host
+   actions; the host time of an env step's tail after the forward (K2's
+   from the logits to the four numpy columns, K7's from the dist inputs
+   and value to the four columns, K8's from the Q-values to the numpy
+   actions, K9f's acting tail from the actor's output to the numpy
+   actions) is timed at the local-mode, PPO Atari, PPO Pendulum, DQN
+   Atari and CartPole, and SAC shapes. The k-step sampling kernel at k=1 is also held equal
    to the single-step one, and its int32 wire actions in pinned host
    memory equal to its device actions; the observation kernel is also
    held through the Sebulba sampler's own launch path (`GroupObsApply`)
@@ -120,11 +124,12 @@ encode (K6a) and gather-sum (K6b) bit for bit against theirs: K6a at
 the Nature CNN's packed gradient, the CartPole FC net's and 64M
 elements, on live blocks and the codec's edge cases; K6b at D=2 and 8,
 with and without the division by D; K7, the DiagGaussian
-sampling tail, at Pendulum's shape (8 x 1, timed) and at 4096 x 17,
-exploring and not (1e-6 + 1e-6 relative; the mean itself when not);
-and K8, the epsilon-greedy tail, at the DQN Atari path's 1 x 6 (timed),
-the CartPole leg's 1 x 2, 32 x 18 and 4096 x 18, each at epsilon 0,
-0.3 and 1, with rows of ties and of NaN (the actions equal); K9f and
+sampling tail, at Pendulum's shape (8 x 1, timed), 256 x 6 and 4096 x
+17, exploring and not (1e-6 + 1e-6 relative; the mean itself when not;
+the step record's columns bit for bit); and K8, the epsilon-greedy
+tail, at the DQN Atari path's 1 x 6 and the CartPole leg's 1 x 2 (both
+timed), 32 x 18 and 4096 x 18, each at epsilon 0, 0.3 and 1, with rows
+of ties and of NaN (the actions and host actions equal); K9f and
 K9b, the squashed-Gaussian tail and its backward, at the SAC path's 1 x 1
 and 256 x 1 (both timed), 256 x 6 and 4096 x 17, at low/high = +-2, with
 raw log_std beyond both clip bounds and |pre| >= 10, exploring and not;
@@ -538,61 +543,47 @@ def host_ms(fn, reps, warmup=10):
 
 
 def k2_step_tail(logits, value, seed=0):
-    """One Categorical env step's tail as the tree's
-    `TorchPolicy.compute_actions` runs it after the forward: from the
-    logits and value on the card to the numpy actions, logp, logits and
-    value in hand. Returns a callable. Where the tree has the step
-    record: the uniforms, K2 writing the record, one wait and the
-    copies (`categorical_step`, `columns`); before it: the uniforms, K2
-    and four `.cpu()` copies."""
+    """One Categorical env step's tail as `TorchPolicy.compute_actions`
+    runs it after the forward: from the logits and value on the card to
+    the numpy actions, logp, logits and value in hand (the uniforms, K2
+    writing the step record, one wait and the copies: `sample_step`,
+    `columns`). Returns a callable."""
+    return _step_tail(logits, value, seed, "Categorical")
+
+
+def _step_tail(inputs, value, seed, dist):
     import torch
-    from ray_tpu_torch.models import distributions
-    generator = torch.Generator(device=logits.device).manual_seed(seed)
-    if not hasattr(distributions, "StepRecord"):
-        def tail():
-            actions, logp = distributions.Categorical(
-                logits).sample_with_logp(generator, explore=True)
-            return (logp.cpu().numpy(), logits.cpu().numpy(),
-                    value.cpu().numpy(), actions.cpu().numpy())
-        return tail
     from types import SimpleNamespace
+    from ray_tpu_torch.models import distributions as D
     from ray_tpu_torch.rllib.policy.torch_policy import TorchPolicy
-    policy = SimpleNamespace(generator=generator, device=logits.device)
-    record = distributions.StepRecord(*logits.shape, pin=True)
+    dist_class = getattr(D, dist)
+    policy = SimpleNamespace(
+        generator=torch.Generator(device=inputs.device).manual_seed(seed),
+        device=inputs.device, dist_class=dist_class)
+    record = dist_class.step_record(*inputs.shape, pin=True)
 
     def tail():
-        TorchPolicy.categorical_step(policy, logits, value, True, record)
+        TorchPolicy.sample_step(policy, inputs, value, True, record)
         return record.columns()
     return tail
 
 
 def k9f_act_tail(x, low, high, seed=0):
-    """One SAC env step's acting tail as the tree's
-    `SACPolicy.compute_actions` runs it after the actor: from the
-    actor's output x [B, 2d] on the card to the numpy actions in hand.
-    Returns a callable. Where the tree has the host output: the
-    normals, K9f writing it, one wait and a copy; before it: the
-    normals, K9f and a `.cpu()` copy."""
+    """One SAC env step's acting tail as `SACPolicy.compute_actions`
+    runs it after the actor: from the actor's output x [B, 2d] on the
+    card to the numpy actions in hand (the normals, K9f writing the
+    host output, one wait and a copy). Returns a callable."""
     import torch
     from ray_tpu_torch.models import distributions as D
     generator = torch.Generator(device=x.device).manual_seed(seed)
     B, d = x.shape[0], x.shape[1] // 2
-
-    def normals():
-        return torch.randn((B, d), generator=generator, dtype=torch.float32,
-                           device=x.device)
-
-    if not hasattr(D, "ActionRecord"):
-        def tail():
-            actions, _ = D.squashed_gaussian_sample_logp(x, normals(), low,
-                                                         high, True)
-            return actions.cpu().numpy()
-        return tail
     constants = D.SquashedTail(low, high, d)
     host = D.ActionRecord(B, d, pin=True)
 
     def tail():
-        D.squashed_gaussian_sample_logp(x, normals(), explore=True,
+        z = torch.randn((B, d), generator=generator, dtype=torch.float32,
+                        device=x.device)
+        D.squashed_gaussian_sample_logp(x, z, explore=True,
                                         tail=constants, host_actions=host)
         host.record_done(x.device)
         return host.columns()
@@ -822,31 +813,49 @@ def categorical_k_bytes_ops(k, N, A):
 GAUSSIAN_TOL = 1e-6  # |kernel - plain| <= TOL + TOL * |plain|
 
 
-def gaussian_bytes_ops(B, d, explore=True):
-    """K7's bytes (inputs and normals read once, actions and logp written
-    once) and f32 operations (exp, mul, add, sub, div, square and two
+def gaussian_bytes_ops(B, d, explore=True, record=False):
+    """K7's bytes (inputs and normals read once; actions and logp written
+    once to the device outputs or, with the step record, to the record
+    with the value read once and the inputs and value written once
+    more) and f32 operations (exp, mul, add, sub, div, square and two
     sums per element; three per row)."""
     nbytes = 4 * (2 * B * d + (B * d if explore else 0) + B * d + B)
+    if record:
+        nbytes += 4 * (B + 2 * B * d + B)
     return nbytes, 8 * B * d + 3 * B
 
 
-def check_diag_gaussian(B, d, timed):
-    """K7 against its plain version, exploring and not: actions and logp
-    within GAUSSIAN_TOL, and the mean itself when not exploring."""
+def gaussian_inputs(B, d, seed):
     import torch
-    from ray_tpu_torch.models import distributions
-    g = torch.Generator(device="cuda").manual_seed(B * d)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     mean = torch.randn(B, d, generator=g, device="cuda") * 2.0
     log_std = torch.rand(B, d, generator=g, device="cuda") * 3.0 - 2.0
     inputs = torch.cat([mean, log_std], dim=1).contiguous()
     z = torch.randn(B, d, generator=g, device="cuda")
+    value = torch.randn(B, generator=g, device="cuda")
+    return inputs, z, value
+
+
+def check_diag_gaussian(B, d, timed):
+    """K7 against its plain version, exploring and not: actions and logp
+    within GAUSSIAN_TOL, and the mean itself when not exploring; with
+    the step record alone (the Box policy's form, no device outputs) its
+    columns equal the device outputs of a call without it, the inputs
+    and the value bit for bit. Timed: `ms` per call in the
+    policy's form (the record, no device outputs), `bare_ms` with the
+    device outputs alone, the device-only time of each, and `tail_ms`,
+    the host time of a whole env step's tail (`k7_step_tail`)."""
+    import torch
+    from ray_tpu_torch.models import distributions as D
+    inputs, z, value = gaussian_inputs(B, d, seed=B * d)
+    mean = inputs[:, :d]
+    record = D.StepRecord(B, 2 * d, pin=True, action_dim=d)
     err = 0.0
     for explore in (True, False):
         zz = z if explore else None
-        actions, logp = distributions.gaussian_sample_logp(inputs, zz,
-                                                           explore)
-        want_a, want_logp = distributions._gaussian_sample_logp_plain(
-            inputs, zz, explore)
+        actions, logp = D.gaussian_sample_logp(inputs, zz, explore)
+        want_a, want_logp = D._gaussian_sample_logp_plain(inputs, zz,
+                                                          explore)
         torch.cuda.synchronize()
         for got, want in ((actions, want_a), (logp, want_logp)):
             bad = (got - want).abs() > GAUSSIAN_TOL + GAUSSIAN_TOL * \
@@ -860,36 +869,73 @@ def check_diag_gaussian(B, d, timed):
         if not explore and not torch.equal(actions, mean):
             raise AssertionError("diag_gaussian kernel: actions are not "
                                  "the mean when not exploring")
+        want_bytes = [t.cpu().numpy().tobytes()
+                      for t in (actions, logp, value, inputs)]
+        record.buffer.fill_(0xff)
+        out = D.gaussian_sample_logp(inputs, zz, explore, value=value,
+                                     record=record)
+        record.record_done(inputs.device)
+        if [c.tobytes() for c in record.columns()] != want_bytes \
+                or out is not None:
+            raise AssertionError(
+                f"diag_gaussian step record differs from the device "
+                f"outputs at B={B} d={d} explore={explore}")
     row = {"B": B, "d": d, "max_abs_err": err}
     if timed:
-        row["ms"] = time_call(
-            lambda: distributions.gaussian_sample_logp(inputs, z, True),
-            reps=2000)
+        path = lambda: D.gaussian_sample_logp(  # noqa: E731
+            inputs, z, True, value=value, record=record)
+        bare = lambda: D.gaussian_sample_logp(inputs, z, True)  # noqa
+        row["ms"] = time_call(path, reps=2000)
+        row["bare_ms"] = time_call(bare, reps=2000)
         row["plain_ms"] = time_call(
-            lambda: distributions._gaussian_sample_logp_plain(
-                inputs, z, True), reps=500)
-        row["device_ms"] = device_ms(
-            lambda: distributions.gaussian_sample_logp(inputs, z, True),
-            "diag_gaussian_sample_kernel")
+            lambda: D._gaussian_sample_logp_plain(inputs, z, True),
+            reps=500)
+        row["device_ms"] = device_ms(path, "diag_gaussian_sample_kernel")
+        row["bare_device_ms"] = device_ms(bare,
+                                          "diag_gaussian_sample_kernel")
+        row["tail_ms"] = host_ms(k7_step_tail(inputs, value), reps=2000)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *gaussian_bytes_ops(B, d, record=True))
     log(f"  diag_gaussian B={B} d={d}: max_abs_err={err:.3e} (tol "
-        f"{GAUSSIAN_TOL} + {GAUSSIAN_TOL}*|plain|), mean when not exploring"
-        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        f"{GAUSSIAN_TOL} + {GAUSSIAN_TOL}*|plain|), mean when not "
+        f"exploring, step record (alone) equal to the device outputs"
+        + (f"; kernel {row['ms']:.5f} ms per call with the record alone "
+           f"({row['bare_ms']:.5f} with device outputs alone), plain "
+           f"{row['plain_ms']:.5f} ms (device-only {row['device_ms']} ms "
+           f"with the record, {row['bare_device_ms']} without; bound "
+           f"{row['bound_ms']:.3e} ms); the env step's tail "
+           f"{row['tail_ms']:.5f} ms of host time" if timed else ""))
     return row
+
+
+def k7_step_tail(inputs, value, seed=0):
+    """One Box env step's tail as `TorchPolicy.compute_actions` runs it
+    after the forward: from the dist inputs and value on the card to the
+    numpy actions, logp, dist inputs and value in hand (the normals, K7
+    writing the step record alone, one wait and the copies:
+    `sample_step`, `columns`). Returns a callable."""
+    return _step_tail(inputs, value, seed, "DiagGaussian")
 
 
 def eps_greedy_bytes_ops(B, A):
     """K8's bytes (Q-values and uniforms read once, the int64 actions
-    written once) and f32 operations (one comparison per Q-value; the
-    multiply, floor and two comparisons of the swap per row)."""
+    written once, to the device or to the host output) and f32
+    operations (one comparison per Q-value; the multiply, floor and two
+    comparisons of the swap per row)."""
     return 4 * B * A + 8 * B + 8 * B, B * A + 4 * B
 
 
 def check_eps_greedy(B, A, timed):
     """K8 against its plain version at epsilon 0, 0.3 and 1: the
-    actions must be equal. From B=4 on, row 0 is all ties, row 1 holds
-    a NaN, row 2 is all NaN and row 3 ties at its maximum."""
+    actions must be equal, and so must the int64 host output's alone
+    (the DQN policy's form, no device output). From B=4
+    on, row 0 is all ties, row 1 holds a NaN, row 2 is all NaN and row
+    3 ties at its maximum. Timed: `ms` per call in the policy's form,
+    `bare_ms` with the device output alone, the device-only time of
+    each, and `tail_ms`, the host time of a whole env step's tail
+    (`k8_step_tail`)."""
     import torch
+    from ray_tpu_torch.models import distributions as D
     from ray_tpu_torch.models import eps_greedy as k8
     g = torch.Generator(device="cuda").manual_seed(B * A + 8)
     q = torch.randn(B, A, generator=g, device="cuda")
@@ -899,6 +945,7 @@ def check_eps_greedy(B, A, timed):
         q[2] = float("nan")
         q[3, 1] = q[3, A - 1] = 9.0
     u = torch.rand(B, 2, generator=g, device="cuda")
+    host = D.ActionRecord(B, pin=True, dtype=torch.int64)
     swapped = 0
     for eps in (0.0, 0.3, 1.0):
         got = k8.eps_greedy(q, u, eps)
@@ -909,19 +956,59 @@ def check_eps_greedy(B, A, timed):
                 f"eps_greedy kernel picks other actions than plain at "
                 f"B={B} A={A} eps={eps}: "
                 f"{int((got != want).sum())} rows differ")
+        host.buffer.fill_(0xff)
+        out = k8.eps_greedy(q, u, eps, host_actions=host)
+        host.record_done(q.device)
+        if host.columns().tobytes() != want.cpu().numpy().tobytes() \
+                or out is not None:
+            raise AssertionError(
+                f"eps_greedy host actions differ from plain at B={B} "
+                f"A={A} eps={eps}")
         swapped += int((u[:, 0] < eps).sum())
     row = {"B": B, "A": A, "max_abs_err": 0.0}
     if timed:
-        row["ms"] = time_call(lambda: k8.eps_greedy(q, u, 0.3), reps=2000)
+        path = lambda: k8.eps_greedy(  # noqa: E731
+            q, u, 0.3, host_actions=host)
+        bare = lambda: k8.eps_greedy(q, u, 0.3)  # noqa: E731
+        row["ms"] = time_call(path, reps=2000)
+        row["bare_ms"] = time_call(bare, reps=2000)
         row["plain_ms"] = time_call(
             lambda: k8._eps_greedy_plain(q, u, 0.3), reps=500)
-        row["device_ms"] = device_ms(lambda: k8.eps_greedy(q, u, 0.3),
-                                     "eps_greedy_kernel")
+        row["device_ms"] = device_ms(path, "eps_greedy_kernel")
+        row["bare_device_ms"] = device_ms(bare, "eps_greedy_kernel")
+        row["tail_ms"] = host_ms(k8_step_tail(q, 0.3), reps=2000)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *eps_greedy_bytes_ops(B, A))
     log(f"  eps_greedy B={B} A={A}: actions equal at eps 0, 0.3 and 1 "
-        f"({swapped} random swaps)"
-        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        f"({swapped} random swaps), host actions (alone) equal"
+        + (f"; kernel {row['ms']:.5f} ms per call with the host output "
+           f"alone ({row['bare_ms']:.5f} with the device output alone), "
+           f"plain {row['plain_ms']:.5f} ms (device-only "
+           f"{row['device_ms']} ms with the host output, "
+           f"{row['bare_device_ms']} without; bound {row['bound_ms']:.3e} "
+           f"ms); the env step's tail {row['tail_ms']:.5f} ms of host "
+           f"time" if timed else ""))
     return row
+
+
+def k8_step_tail(q, eps, seed=0):
+    """One DQN env step's tail as `DQNPolicy.compute_actions` runs it
+    after the forward: from the Q-values on the card to the numpy
+    actions in hand (the uniforms, K8 writing the host output alone, one
+    wait and a copy). Returns a callable."""
+    import torch
+    from ray_tpu_torch.models import distributions as D
+    from ray_tpu_torch.models import eps_greedy as k8
+    generator = torch.Generator(device=q.device).manual_seed(seed)
+    host = D.ActionRecord(q.shape[0], pin=True, dtype=torch.int64)
+
+    def tail():
+        u = torch.rand((q.shape[0], 2), generator=generator,
+                       dtype=torch.float32, device=q.device)
+        k8.eps_greedy(q, u, eps, host_actions=host)
+        host.record_done(q.device)
+        return host.columns()
+    return tail
 
 
 def squashed_bytes_ops(B, d, explore=True, host=False):
@@ -1986,12 +2073,13 @@ def fc_train_flops_per_row(model):
     return 6.0 * macs
 
 
-def run_ppo(name, config, kernel, num_envs, flops_per_row):
+def run_ppo(name, config, kernel, num_envs, flops_per_row,
+            with_summary=False):
     """`PPO_ITERS` iterations of `PPOTrainer(config)`: iteration 1's
     minibatch phase sync-checked, the last one profiled. `kernel`, the
     sampling tail of the action space, must launch once per env step.
     Returns (trainer, launches, the last train batch as the learner
-    got it)."""
+    got it), and the summary with `with_summary`."""
     import torch
     from ray_tpu_torch.rllib.agents.ppo import PPOTrainer
 
@@ -2072,7 +2160,37 @@ def run_ppo(name, config, kernel, num_envs, flops_per_row):
         "profiled_iteration": prof,
     }
     log(f"  {name} summary: {json.dumps(summary)}")
+    if with_summary:
+        return trainer, launches, last_batch[0], summary
     return trainer, launches, last_batch[0]
+
+
+def ppo_pendulum_config():
+    """Phase 8's configuration and its network's training FLOPs per
+    row: `PPO_PENDULUM_CONFIG` with PPO's default batch sizes and
+    epochs."""
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.rllib.agents.ppo import DEFAULT_CONFIG as PPO_DEFAULTS
+    from ray_tpu_torch.rllib.env.spaces import Box
+    fc = catalog.get_model(Box(-8.0, 8.0, (3,)), 2,
+                           PPO_PENDULUM_CONFIG["model"])
+    config = dict(PPO_PENDULUM_CONFIG, **{
+        k: PPO_DEFAULTS[k] for k in ("train_batch_size",
+                                     "sgd_minibatch_size", "num_sgd_iter")})
+    return config, fc_train_flops_per_row(fc)
+
+
+def run_ppo_pendulum(with_summary=False):
+    """Phase 8: PPO on Pendulum through K7. -> (K7's launches), and the
+    summary with `with_summary`."""
+    from ray_tpu_torch.models import distributions
+    config, flops = ppo_pendulum_config()
+    out = run_ppo("ppo_pendulum", config,
+                  distributions.DIAG_GAUSSIAN_KERNEL, PPO_PENDULUM_ENVS,
+                  flops, with_summary=with_summary)
+    out[0].stop()
+    gc.collect()
+    return (out[1], out[3]) if with_summary else out[1]
 
 
 def ppo_phase(config, weights, loss_state, batch, epochs, minibatch,
@@ -2206,14 +2324,15 @@ def port_kernels():
             distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL]
 
 
-def run_dqn(name, config, iters, profile_last):
+def run_dqn(name, config, iters, profile_last, with_summary=False):
     """`iters` iterations of `DQNTrainer(config)` (the last one, cut to
     `DQN_PROFILED_STEPS` env steps, profiled when `profile_last`), with
     every kernel's count set to 0 just
     before: K8 must launch once per env step and no other kernel at
     all; the target network must have synced; epsilon must sit on its
     schedule at the sampled steps. Returns (trainer, K8 launches, the
-    last replay batch the learner got)."""
+    last replay batch the learner got), and the summary with
+    `with_summary`."""
     import torch
     from ray_tpu_torch.models import eps_greedy
     from ray_tpu_torch.rllib.agents.dqn import DQNTrainer
@@ -2343,6 +2462,8 @@ def run_dqn(name, config, iters, profile_last):
         "profiled_iteration": prof,
     }
     log(f"  {name} summary: {json.dumps(summary)}")
+    if with_summary:
+        return trainer, launches["eps_greedy"], last_batch[0], summary
     return trainer, launches["eps_greedy"], last_batch[0]
 
 
@@ -2825,24 +2946,27 @@ def main():
         f"q8_gather_sum D={DP_RANKS} {k6b_bound[0]:.6f} ({k6b_bound[1]}), "
         f"nb {nb_nature} (Nature CNN), {nb_cartpole} (CartPole FC)")
 
-    # K7 at Pendulum's shape (8 envs, a 1-dim box; timed) and at 4096
-    # envs x a 17-dim box.
+    # K7 at Pendulum's shape (8 envs, a 1-dim box; timed, with the step
+    # record as the Box policy runs it), at 256 x 6 and at 4096 envs x a
+    # 17-dim box.
     k7 = check_diag_gaussian(PPO_PENDULUM_ENVS, 1, timed=True)
+    check_diag_gaussian(256, 6, timed=False)
     check_diag_gaussian(4096, 17, timed=False)
-    k7_bound = bound_ms(*gaussian_bytes_ops(PPO_PENDULUM_ENVS, 1))
+    k7_bound = (k7["bound_ms"], k7["bound_by"])
     log(f"  bound ms: diag_gaussian B={PPO_PENDULUM_ENVS} d=1 "
-        f"{k7_bound[0]:.3e} ({k7_bound[1]})")
+        f"{k7_bound[0]:.3e} ({k7_bound[1]}, with the step record)")
 
-    # K8 at the DQN Atari path's shape (one env, 6 actions; timed), at
-    # the CartPole leg's (one env, 2 actions), at 32 x 18 and at 4096 x
-    # 18 (the full Atari action set), each at epsilon 0, 0.3 and 1.
+    # K8 at the DQN Atari path's shape (one env, 6 actions) and the
+    # CartPole leg's (one env, 2 actions), both timed with the host output
+    # as the DQN policy runs it, at 32 x 18 and at 4096 x 18 (the full
+    # Atari action set), each at epsilon 0, 0.3 and 1.
     k8 = check_eps_greedy(1, NUM_ACTIONS, timed=True)
-    check_eps_greedy(1, 2, timed=False)
+    check_eps_greedy(1, 2, timed=True)
     check_eps_greedy(32, 18, timed=False)
     check_eps_greedy(4096, 18, timed=False)
-    k8_bound = bound_ms(*eps_greedy_bytes_ops(1, NUM_ACTIONS))
+    k8_bound = (k8["bound_ms"], k8["bound_by"])
     log(f"  bound ms: eps_greedy B=1 A={NUM_ACTIONS} {k8_bound[0]:.3e} "
-        f"({k8_bound[1]}, {eps_greedy_bytes_ops(1, NUM_ACTIONS)[0]} B)")
+        f"({k8_bound[1]}, the host output alone)")
 
     # K9f and K9b at the SAC path's shapes and two larger ones.
     k9 = check_squashed_gaussian_all()
@@ -2882,20 +3006,7 @@ def main():
     trainer.stop()
 
     log("phase 8: PPOTrainer on Pendulum-v0 (DiagGaussian, K7)")
-    from ray_tpu_torch.models import catalog
-    from ray_tpu_torch.rllib.env.spaces import Box
-    fc = catalog.get_model(Box(-8.0, 8.0, (3,)), 2,
-                           PPO_PENDULUM_CONFIG["model"])
-    from ray_tpu_torch.rllib.agents.ppo import DEFAULT_CONFIG as PPO_DEFAULTS
-    pendulum_config = dict(PPO_PENDULUM_CONFIG, **{
-        k: PPO_DEFAULTS[k] for k in ("train_batch_size",
-                                     "sgd_minibatch_size", "num_sgd_iter")})
-    trainer, k7_launches, _ = run_ppo(
-        "ppo_pendulum", pendulum_config, distributions.DIAG_GAUSSIAN_KERNEL,
-        PPO_PENDULUM_ENVS, fc_train_flops_per_row(fc))
-    trainer.stop()
-    del trainer
-    gc.collect()
+    k7_launches = run_ppo_pendulum()
 
     k8_launches = run_phase9()
     k9_launches = run_phase10()

@@ -27,20 +27,39 @@ tree. The legs (all by default):
 - `k2`: K2 at 32x6 (local mode) and 16x6 (PPO Atari): actions held
   against the plain version; device time and time per call of the bare
   wrapper, and the env step's tail as the tree's
-  `TorchPolicy.compute_actions` runs it after the forward
-  (`chip_smoke.k2_step_tail`: from the logits and value on the card to
-  the four numpy columns): its host time per step, the device
-  operations it enqueues and their device time, K2's own device time
-  in it; plain and bound (with the step record where the tree has one).
+  `TorchPolicy.compute_actions` runs it after the forward (from the
+  logits and value on the card to the four numpy columns, through the
+  step record: `chip_smoke.k2_step_tail`, or `categorical_step` where
+  the tree's policy has no `sample_step`): its host time per step, the
+  device operations it enqueues and their device time, K2's own device
+  time in it; plain and bound.
 - `k9f`: K9f at 1x1 (SAC's acting step): device time, the acting tail
   (`chip_smoke.k9f_act_tail`, from the actor's output to the numpy
   actions) with its host time, device operations and their device
   time; at 256x1 (an update): time per call through the tree's path
   with no gradient and for an input that needs one (the autograd
   function), device time; plain and bound at both.
+- `k8`: K8 at 1x6 (DQN Atari) and 1x2 (DQN CartPole), epsilon 0.3:
+  actions held against the plain version; device time and time per
+  call of the bare wrapper (the device output), the time per call as
+  the policy calls it (`path_ms`, the host output alone, where the tree
+  has one), and the env step's tail as the tree's
+  `DQNPolicy.compute_actions` runs it after the forward (from the
+  Q-values on the card to the numpy actions: `chip_smoke.k8_step_tail`
+  where K8 takes a host output, else the uniforms, K8 and a `.cpu()`
+  copy): its host time per step, the device operations it enqueues and
+  their device time, K8's own device time in it; plain and bound.
+- `k7`: K7 at 8x1 (PPO Pendulum), the same figures, its tail from the
+  dist inputs and value on the card to the four numpy columns
+  (`chip_smoke.k7_step_tail` where `DiagGaussian` has a step record,
+  else `DiagGaussian`, the normals, K7 and four `.cpu()` copies).
 - `phase3`: phase 3 of `chip_smoke.py` (local-mode IMPALA): env steps/s.
 - `phase4`: phase 4 (the Sebulba trainer at k=1 and k=5): env steps/s
   and the actors' wall split (`apply_pct`, `select_pct`).
+- `phase8`: phase 8 (PPO on Pendulum): env steps/s, the SGD phase's
+  time per iteration.
+- `phase9`: phase 9's two runs (DQN on Atari pixels and on CartPole,
+  without the profiled iteration): env steps/s, update time.
 - `phase10`: phase 10's run (SAC on Pendulum): env steps/s of the
   learning iteration, update time.
 
@@ -55,12 +74,16 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 K3_SHAPES = (32, 192)
 K2K_STEPS = (1, 5)
 K2_SHAPES = ((32, 6), (16, 6))
 K9F_SHAPES = ((1, 1), (256, 1))
+K8_SHAPES = ((1, 6), (1, 2))
+K7_SHAPES = ((8, 1),)
+K8_EPS = 0.3
 
 
 def k2k_window_tail(distributions, logits, u, k, host):
@@ -112,7 +135,8 @@ def load_chip_smoke():
     return module
 
 
-LEGS = ("k3", "k2k", "k2", "k9f", "phase3", "phase4", "phase10")
+LEGS = ("k3", "k2k", "k2", "k9f", "k8", "k7", "phase3", "phase4",
+        "phase8", "phase9", "phase10")
 
 
 def leg_k3(cs, torch, distributions, ds):
@@ -186,9 +210,78 @@ def leg_k2k(cs, torch, distributions, ds):
     return out
 
 
+def k2_tail(cs, D, logits, value):
+    """K2's env-step tail in the tree: chip_smoke's (`sample_step`), or
+    `categorical_step` where the tree's policy has that alone."""
+    import torch
+    from ray_tpu_torch.rllib.policy.torch_policy import TorchPolicy
+    if hasattr(TorchPolicy, "sample_step"):
+        return cs.k2_step_tail(logits, value)
+    policy = SimpleNamespace(
+        generator=torch.Generator(device=logits.device).manual_seed(0),
+        device=logits.device)
+    record = D.StepRecord(*logits.shape, pin=True)
+
+    def tail():
+        TorchPolicy.categorical_step(policy, logits, value, True, record)
+        return record.columns()
+    return tail
+
+
+def k8_tail(cs, k8, q, eps, host):
+    """K8's env-step tail in the tree: chip_smoke's where K8 takes a
+    host output, else the uniforms, K8 and a `.cpu()` copy."""
+    import torch
+    if host:
+        return cs.k8_step_tail(q, eps)
+    generator = torch.Generator(device=q.device).manual_seed(0)
+
+    def tail():
+        u = torch.rand((q.shape[0], 2), generator=generator,
+                       dtype=torch.float32, device=q.device)
+        return k8.eps_greedy(q.contiguous(), u, eps).cpu().numpy()
+    return tail
+
+
+def k7_tail(cs, D, inputs, value, record):
+    """K7's env-step tail in the tree: chip_smoke's where `DiagGaussian`
+    has a step record, else `DiagGaussian` (its exp), the normals, K7
+    and four `.cpu()` copies."""
+    import torch
+    if record:
+        return cs.k7_step_tail(inputs, value)
+    generator = torch.Generator(device=inputs.device).manual_seed(0)
+
+    def tail():
+        actions, logp = D.DiagGaussian(inputs).sample_with_logp(
+            generator, explore=True)
+        return (logp.cpu().numpy(), inputs.cpu().numpy(),
+                value.cpu().numpy(), actions.cpu().numpy())
+    return tail
+
+
+def tail_row(cs, tail, kernel_symbol, bare, plain, bound, path=None):
+    """The figures of one kernel's env-step tail and its bare wrapper
+    (and of `path`, the wrapper as the tree's policy calls it, when that
+    differs from the bare call)."""
+    ops, tail_device_ms = device_work_per_call(tail)
+    extra = {} if path is None else {"path_ms": cs.time_call(path,
+                                                             reps=2000)}
+    return {
+        **extra,
+        "device_ms": cs.device_ms(bare, kernel_symbol),
+        "tail_kernel_device_ms": cs.device_ms(tail, kernel_symbol),
+        "bare_ms": cs.time_call(bare, reps=2000),
+        "tail_host_ms": cs.host_ms(tail, reps=2000),
+        "tail_device_ops": ops,
+        "tail_device_ms": tail_device_ms,
+        "plain_ms": cs.time_call(plain, reps=500),
+        "bound_ms": bound,
+    }
+
+
 def leg_k2(cs, torch, distributions, ds):
     out = {}
-    record = hasattr(distributions, "StepRecord")
     for B, A in K2_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B * A)
         logits = torch.randn(B, A, generator=g, device="cuda") * 3.0
@@ -199,34 +292,21 @@ def leg_k2(cs, torch, distributions, ds):
         torch.cuda.synchronize()
         if not torch.equal(actions, want):
             raise AssertionError(f"K2 differs from plain at {B}x{A}")
-        bare = lambda: distributions.sample_logp(logits, u, True)  # noqa
-        tail = cs.k2_step_tail(logits, value)
+        tail = k2_tail(cs, distributions, logits, value)
         columns = tail()
         if sorted(c.shape for c in columns) != sorted(
                 [(B,), (B,), (B,), (B, A)]):
             raise AssertionError(f"K2's tail returned {columns}")
-        tail_ops, tail_device_ms = device_work_per_call(tail)
-        out[f"{B}x{A}"] = {
-            "step_record": record,
-            "device_ms": cs.device_ms(bare, "categorical_sample_kernel"),
-            "tail_kernel_device_ms": cs.device_ms(
-                tail, "categorical_sample_kernel"),
-            "bare_ms": cs.time_call(bare, reps=2000),
-            "tail_host_ms": cs.host_ms(tail, reps=2000),
-            "tail_device_ops": tail_ops,
-            "tail_device_ms": tail_device_ms,
-            "plain_ms": cs.time_call(
-                lambda: distributions._sample_logp_plain(logits, u, True),
-                reps=500),
-            "bound_ms": cs.bound_ms(
-                *cs.categorical_bytes_ops(B, A, record=record))[0],
-        }
+        out[f"{B}x{A}"] = tail_row(
+            cs, tail, "categorical_sample_kernel",
+            lambda: distributions.sample_logp(logits, u, True),
+            lambda: distributions._sample_logp_plain(logits, u, True),
+            cs.bound_ms(*cs.categorical_bytes_ops(B, A, record=True))[0])
     return out
 
 
 def leg_k9f(cs, torch, D, ds):
     out = {}
-    record = hasattr(D, "ActionRecord")
     low, high = -2.0, 2.0  # Pendulum's action bounds
     for B, d in K9F_SHAPES:
         x, z = cs.squashed_inputs(B, d, seed=B * d + 9, margin=0.0)
@@ -236,15 +316,11 @@ def leg_k9f(cs, torch, D, ds):
         if not torch.allclose(got, want, rtol=cs.SQUASHED_TOL,
                               atol=cs.SQUASHED_TOL):
             raise AssertionError(f"K9f differs from plain at {B}x{d}")
-        kw = {}
-        if "tail" in inspect.signature(
-                D.squashed_gaussian_sample_logp).parameters:
-            kw["tail"] = D.SquashedTail(low, high, d)
+        kw = {"tail": D.SquashedTail(low, high, d)}
         xg = x.clone().requires_grad_(True)
         path = lambda: D.squashed_gaussian_sample_logp(  # noqa: E731
             x, z, low, high, True, **kw)
         row = {
-            "host_output": record,
             "device_ms": cs.device_ms(path,
                                       "squashed_gaussian_sample_kernel"),
             "ms": cs.time_call(path, reps=2000),
@@ -266,8 +342,65 @@ def leg_k9f(cs, torch, D, ds):
                 tail, "squashed_gaussian_sample_kernel")
             row["tail_host_ms"] = cs.host_ms(tail, reps=2000)
             row["tail_bound_ms"] = cs.bound_ms(*cs.squashed_bytes_ops(
-                B, d, host=record))[0]
+                B, d, host=True))[0]
         out[f"{B}x{d}"] = row
+    return out
+
+
+def leg_k8(cs, torch, D, ds):
+    from ray_tpu_torch.models import eps_greedy as k8
+    out = {}
+    host = "host_actions" in inspect.signature(k8.eps_greedy).parameters
+    for B, A in K8_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * A + 8)
+        q = torch.randn(B, A, generator=g, device="cuda")
+        u = torch.rand(B, 2, generator=g, device="cuda")
+        got = k8.eps_greedy(q, u, K8_EPS)
+        if not torch.equal(got, k8._eps_greedy_plain(q, u, K8_EPS)):
+            raise AssertionError(f"K8 differs from plain at {B}x{A}")
+        tail = k8_tail(cs, k8, q, K8_EPS, host)
+        if tail().shape != (B,):
+            raise AssertionError("K8's tail's actions")
+        path = None
+        if host:
+            record = D.ActionRecord(B, pin=True, dtype=torch.int64)
+            path = lambda: k8.eps_greedy(  # noqa: E731
+                q, u, K8_EPS, host_actions=record)
+        out[f"{B}x{A}"] = dict(tail_row(
+            cs, tail, "eps_greedy_kernel",
+            lambda: k8.eps_greedy(q, u, K8_EPS),
+            lambda: k8._eps_greedy_plain(q, u, K8_EPS),
+            cs.bound_ms(*cs.eps_greedy_bytes_ops(B, A))[0], path),
+            host_output=host)
+    return out
+
+
+def leg_k7(cs, torch, D, ds):
+    out = {}
+    record = hasattr(D.DiagGaussian, "step_record")
+    for B, d in K7_SHAPES:
+        inputs, z, value = cs.gaussian_inputs(B, d, seed=B * d)
+        got, _ = D.gaussian_sample_logp(inputs, z, True)
+        want, _ = D._gaussian_sample_logp_plain(inputs, z, True)
+        if not torch.allclose(got, want, rtol=cs.GAUSSIAN_TOL,
+                              atol=cs.GAUSSIAN_TOL):
+            raise AssertionError(f"K7 differs from plain at {B}x{d}")
+        tail = k7_tail(cs, D, inputs, value, record)
+        if sorted(c.shape for c in tail()) != sorted(
+                [(B, d), (B,), (B,), (B, 2 * d)]):
+            raise AssertionError("K7's tail's columns")
+        path = None
+        if record:
+            rec = D.DiagGaussian.step_record(B, 2 * d, pin=True)
+            path = lambda: D.gaussian_sample_logp(  # noqa: E731
+                inputs, z, True, value=value, record=rec)
+        out[f"{B}x{d}"] = dict(tail_row(
+            cs, tail, "diag_gaussian_sample_kernel",
+            lambda: D.gaussian_sample_logp(inputs, z, True),
+            lambda: D._gaussian_sample_logp_plain(inputs, z, True),
+            cs.bound_ms(*cs.gaussian_bytes_ops(B, d, record=record))[0],
+            path),
+            step_record=record)
     return out
 
 
@@ -288,6 +421,26 @@ def leg_phase4(cs):
             "env_steps_per_s_steady": summary["env_steps_per_s_steady"],
             "iter_s": summary["iter_s"],
             **summary["transfer_steady"]}
+    return out
+
+
+def leg_phase8(cs):
+    _, summary = cs.run_ppo_pendulum(with_summary=True)
+    return {k: summary[k] for k in ("env_steps_per_s_steady", "iter_s",
+                                    "sample_s_steady", "learn_s_steady")}
+
+
+def leg_phase9(cs):
+    out = {}
+    for name, config in (("dqn_atari", cs.DQN_ATARI_CONFIG),
+                         ("dqn_cartpole", cs.DQN_CARTPOLE_CONFIG)):
+        trainer, _, _, summary = cs.run_dqn(name, config, cs.DQN_ITERS,
+                                            profile_last=False,
+                                            with_summary=True)
+        trainer.stop()
+        out[name] = {k: summary[k] for k in (
+            "env_steps_per_s_steady", "iter_s", "sample_s_steady",
+            "update_ms_steady", "update_parts_ms_steady")}
     return out
 
 

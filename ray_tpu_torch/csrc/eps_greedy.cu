@@ -26,6 +26,21 @@
 // with warp shuffles in registers, and lane 0 making the epsilon swap;
 // one launch, where the plain version launches about eight small
 // PyTorch kernels.
+//
+// The host actions: the DQN policy's env step needs its actions on the
+// host and nowhere else. Given the device-mapped address of a pinned
+// int64 [B] host buffer (resolved once per buffer by the wrapper through
+// `host_device_pointer`; a buffer the card cannot map fails there,
+// before any launch), lane 0 writes the action there, beside the device
+// output or instead of it: `actions` may be null when a host output is
+// given. The step's tail is then the uniforms and this launch, followed
+// by one wait on an event recorded after it, with no device output to
+// allocate and no device-to-host copy. The writes are complete and
+// visible to the host once that event has completed. The cost moves to
+// the device: the kernel ends only after its PCIe write (8 bytes per
+// row), as K2's launch went from 1.5 to 2.9 us with its step record and
+// K9f's from 1.4 to 2.5 with its host actions; the bound counts the
+// bytes like any output.
 
 #include <cmath>
 #include <cstdint>
@@ -51,10 +66,13 @@ __device__ __forceinline__ bool beats(float v, int j, float bv, int bj,
   return j < bj;
 }
 
+// `actions`: null, or the int64 [B] device output; `host`: null, or the
+// device-mapped address of the pinned int64 [B] host output.
 __global__ void eps_greedy_kernel(const float* __restrict__ q,
                                   const float* __restrict__ u,
-                                  int64_t* __restrict__ actions, int B,
-                                  int A, float eps) {
+                                  int64_t* __restrict__ actions,
+                                  int64_t* __restrict__ host, int B, int A,
+                                  float eps) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
   if (row >= B) return;  // whole warps leave together
@@ -85,20 +103,37 @@ __global__ void eps_greedy_kernel(const float* __restrict__ q,
           floorf(__fmul_rn(u1, static_cast<float>(A))));
       a = r < A - 1 ? r : A - 1;
     }
-    actions[row] = a;
+    if (actions != nullptr) actions[row] = a;
+    if (host != nullptr) host[row] = a;
   }
 }
 
 }  // namespace
 
+// `host_actions`: null, or the device-mapped address (from
+// `host_device_pointer`) of a pinned int64 [B] host buffer that receives
+// the actions; `actions` may then be null.
 extern "C" int eps_greedy(const float* q, const float* u, int64_t* actions,
-                          int B, int A, float eps, void* stream) {
+                          int64_t* host_actions, int B, int A, float eps,
+                          void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
+  if (actions == nullptr && host_actions == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
   eps_greedy_kernel<<<blocks, kRowsPerBlock * kWarp, 0,
-                      static_cast<cudaStream_t>(stream)>>>(q, u, actions, B,
-                                                           A, eps);
+                      static_cast<cudaStream_t>(stream)>>>(
+      q, u, actions, host_actions, B, A, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device-mapped address of pinned host memory at `host`, into
+// `*device`. Memory the card cannot map (pageable) returns the error;
+// it is then also this library's last runtime error, so it is cleared,
+// or the next launch here would report it as its own.
+extern "C" int host_device_pointer(void* host, void** device) {
+  const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 extern "C" const char* kernel_error_string(int code) {

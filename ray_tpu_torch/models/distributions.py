@@ -29,18 +29,22 @@ Where no gradient is needed the tail goes to K9f directly.
 `SquashedGaussian.logp` and `entropy` stay plain PyTorch (no path calls
 them).
 
-Per-step host outputs: K2 fills a `StepRecord` (the step's actions,
-logp, value and logits) and K9f an `ActionRecord` (its actions) in
-pinned host memory, through the buffer's device-mapped address, beside
-their device outputs; on the CPU the plain versions fill the same
-records by copy.
+Per-step host outputs: K2 and K7 fill a `StepRecord` (the step's
+actions, logp, value and dist inputs) and K9f an `ActionRecord` (its
+actions; K8 in `eps_greedy.py` fills an int64 one) in pinned host
+memory, through the buffer's device-mapped address: K2 and K9f beside
+their device outputs, K7 (and K8) beside them or instead of them. On the
+CPU the plain versions fill the same records by copy. `ThreadRecords`
+keeps a policy's records per calling thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+import threading
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,12 +69,13 @@ CATEGORICAL_K_KERNEL = CudaKernel(
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p])
 
-# K7: one warp per row; see the source note in csrc/diag_gaussian.cu.
+# K7: one warp per row, with the optional step record in pinned host
+# memory; see the source note in csrc/diag_gaussian.cu.
 DIAG_GAUSSIAN_KERNEL = CudaKernel(
     "diag_gaussian", "diag_gaussian.cu", "diag_gaussian_sample",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-     ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 # K9f and K9b: the squashed-Gaussian tail and its backward; see the
 # source note in csrc/squashed_gaussian.cu.
@@ -89,11 +94,21 @@ SQUASHED_GAUSSIAN_BACKWARD_KERNEL = CudaKernel(
 _TINY = torch.finfo(torch.float32).tiny
 
 
+def _sampling_inputs(x: torch.Tensor) -> torch.Tensor:
+    """`x` as a sampling kernel takes it: f32, contiguous, no gradient
+    (no copy where it already is)."""
+    if x.requires_grad:
+        x = x.detach()
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    return x
+
+
 class HostRecord:
-    """A host buffer that a kernel fills beside its device outputs,
-    through the buffer's device-mapped address: pinned when `pin` (for a
-    CUDA device), pageable otherwise (for the CPU, where the plain
-    versions fill it by copy; a kernel refuses it). The mapped address is
+    """A host buffer that a kernel fills beside its device outputs (or
+    instead of them), through the buffer's device-mapped address: pinned
+    when `pin` (for a CUDA device), pageable otherwise (for the CPU,
+    where the plain versions fill it by copy; a kernel refuses it). The mapped address is
     resolved once, at the first launch that writes the buffer. The
     kernel's writes are complete once `record_done`'s event, recorded
     after the launch, has completed: `wait` waits for it.
@@ -136,36 +151,48 @@ class HostRecord:
 
 
 class StepRecord(HostRecord):
-    """K2's step record for B rows of A logits, back to back in the
-    order `csrc/categorical.cu` writes them: `actions` int64 [B], `logp`
-    f32 [B], `value` f32 [B] and `logits` f32 [B, A] (torch views of
-    the buffer; `numpy` holds numpy views of the four, in that order)."""
+    """A sampling tail's step record for B rows of `width` dist inputs,
+    back to back in the order the kernels write them
+    (`csrc/categorical.cu`, `csrc/diag_gaussian.cu`): `actions`, `logp`
+    f32 [B], `value` f32 [B] and `inputs` f32 [B, width] (torch views of
+    the buffer; `numpy` holds numpy views of the four, in that order).
+    The actions are Categorical's int64 [B] (K2) when `action_dim` is
+    None, else DiagGaussian's f32 [B, action_dim] (K7)."""
 
-    def __init__(self, B: int, A: int, pin: bool):
-        super().__init__(B * (8 + 4 + 4 + 4 * A), pin)
-        self.shape = (B, A)
-        self.actions = self._column(torch.int64, (B,))
+    def __init__(self, B: int, width: int, pin: bool,
+                 action_dim: Optional[int] = None):
+        action_dtype = torch.int64 if action_dim is None else torch.float32
+        action_shape = (B,) if action_dim is None else (B, action_dim)
+        action_bytes = 8 * B if action_dim is None else 4 * B * action_dim
+        super().__init__(action_bytes + 4 * B * (2 + width), pin)
+        self.shape = (B, width)
+        self.action_dim = action_dim
+        self.actions = self._column(action_dtype, action_shape)
         self.logp = self._column(torch.float32, (B,))
         self.value = self._column(torch.float32, (B,))
-        self.logits = self._column(torch.float32, (B, A))
+        self.inputs = self._column(torch.float32, (B, width))
         self.numpy = tuple(t.numpy() for t in (
-            self.actions, self.logp, self.value, self.logits))
+            self.actions, self.logp, self.value, self.inputs))
 
     def columns(self) -> Tuple[np.ndarray, ...]:
         """Wait for the kernel's writes, then copies of (actions, logp,
-        value, logits): the record is reused by the next step."""
+        value, inputs): the record is reused by the next step."""
         self.wait()
         return tuple(a.copy() for a in self.numpy)
 
 
 class ActionRecord(HostRecord):
-    """K9f's host output: `actions` f32 [B, d] (a torch view; `numpy`
-    its numpy view)."""
+    """A host output of actions alone: `actions` of `shape` and `dtype`
+    (a torch view; `numpy` its numpy view). K9f's is f32 [B, d], K8's
+    int64 [B]."""
 
-    def __init__(self, B: int, d: int, pin: bool):
-        super().__init__(4 * B * d, pin)
-        self.shape = (B, d)
-        self.actions = self._column(torch.float32, (B, d))
+    def __init__(self, *shape: int, pin: bool,
+                 dtype: torch.dtype = torch.float32):
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        super().__init__(itemsize * int(np.prod(shape)), pin)
+        self.shape = shape
+        self.dtype = dtype
+        self.actions = self._column(dtype, shape)
         self.numpy = self.actions.numpy()
 
     def columns(self) -> np.ndarray:
@@ -174,10 +201,41 @@ class ActionRecord(HostRecord):
         return self.numpy.copy()
 
 
-def _check_record(record, cls, shape) -> None:
-    if not isinstance(record, cls) or record.shape != shape:
+class ThreadRecords:
+    """A policy's host records per calling thread and row count, each
+    made by `make(rows)` at its first use: no two callers in flight
+    share one (each reads copies of its columns, so no view outlives the
+    thread's next step)."""
+
+    def __init__(self, make: Callable[[int], HostRecord]):
+        self._make = make
+        self._local = threading.local()
+
+    def get(self, rows: int) -> HostRecord:
+        records = getattr(self._local, "by_rows", None)
+        if records is None:
+            records = self._local.by_rows = {}
+        record = records.get(rows)
+        if record is None:
+            record = records[rows] = self._make(rows)
+        return record
+
+
+def _check_record(record, cls, shape, **attrs) -> None:
+    if not isinstance(record, cls) or record.shape != shape or any(
+            getattr(record, k) != v for k, v in attrs.items()):
         raise ValueError(f"record must be a {cls.__name__} of shape "
-                         f"{shape}, got {record!r}")
+                         f"{shape} {attrs}, got {record!r}")
+
+
+def _check_value(value: Optional[torch.Tensor], record, B: int,
+                 index: int) -> None:
+    if value is not None and (
+            record is None or value.shape != (B,)
+            or value.dtype != torch.float32 or value.get_device() != index
+            or not value.is_contiguous()):
+        raise ValueError("value goes into a record: a contiguous float32 "
+                         "[B] tensor on the inputs' device")
 
 
 def _sample_logp_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
@@ -201,9 +259,9 @@ def _sample_logp_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on [B, A] f32 logits (and [B, A] f32 uniforms when
     exploring). Allocates the int64 actions and f32 logp outputs. With
-    `record` (a pinned StepRecord of [B, A]), the kernel also writes the
-    actions, logp and logits there, and `value` (f32 [B] on the logits'
-    device) into its value column."""
+    `record` (a pinned StepRecord of [B, A] and int64 actions), the kernel
+    also writes the actions, logp and logits there, and `value` (f32 [B]
+    on the logits' device) into its value column."""
     if logits.dtype != torch.float32 or logits.dim() != 2:
         raise ValueError(f"categorical kernel takes [B, A] float32 logits, "
                          f"got {tuple(logits.shape)} {logits.dtype}")
@@ -221,14 +279,9 @@ def _sample_logp_cuda(logits: torch.Tensor, u: Optional[torch.Tensor],
             raise ValueError("categorical kernel takes contiguous uniforms")
     address = None
     if record is not None:
-        _check_record(record, StepRecord, (B, A))
+        _check_record(record, StepRecord, (B, A), action_dim=None)
         address = record.address(CATEGORICAL_KERNEL)
-    if value is not None and (
-            record is None or value.shape != (B,)
-            or value.dtype != torch.float32 or value.get_device() != index
-            or not value.is_contiguous()):
-        raise ValueError("value goes into a record: a contiguous float32 "
-                         "[B] tensor on the logits' device")
+    _check_value(value, record, B, index)
     actions = torch.empty(B, dtype=torch.int64, device=logits.device)
     logp = torch.empty(B, dtype=torch.float32, device=logits.device)
     CATEGORICAL_KERNEL.launch(
@@ -267,13 +320,21 @@ def sample_logp(logits: torch.Tensor, u: Optional[torch.Tensor] = None,
     with torch.no_grad():
         actions, logp = _sample_logp_plain(logits, u, explore)
         if record is not None:
-            _check_record(record, StepRecord, tuple(logits.shape))
-            record.actions.copy_(actions)
-            record.logp.copy_(logp)
-            record.logits.copy_(logits)
-            if value is not None:
-                record.value.copy_(value)
+            _check_record(record, StepRecord, tuple(logits.shape),
+                          action_dim=None)
+            _fill_record(record, actions, logp, value, logits)
     return actions, logp
+
+
+def _fill_record(record: StepRecord, actions: torch.Tensor,
+                 logp: torch.Tensor, value: Optional[torch.Tensor],
+                 inputs: torch.Tensor) -> None:
+    """The CPU's step record: the plain version's columns, by copy."""
+    record.actions.copy_(actions)
+    record.logp.copy_(logp)
+    record.inputs.copy_(inputs)
+    if value is not None:
+        record.value.copy_(value)
 
 
 def _sample_logp_k_plain(logits: torch.Tensor, u: Optional[torch.Tensor],
@@ -395,50 +456,84 @@ def _gaussian_sample_logp_plain(inputs: torch.Tensor,
 
 
 def _gaussian_sample_logp_cuda(inputs: torch.Tensor,
-                               z: Optional[torch.Tensor], explore: bool
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+                               z: Optional[torch.Tensor], explore: bool,
+                               value: Optional[torch.Tensor] = None,
+                               record: Optional[StepRecord] = None
+                               ) -> Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
     """Launch K7 on [B, 2d] f32 inputs (and [B, d] f32 normals when
-    exploring). Allocates the f32 [B, d] actions and [B] logp."""
+    exploring). With `record` (a pinned StepRecord of [B, 2d] and f32
+    [B, d] actions), the kernel writes the actions, logp and inputs
+    there alone, and `value` (f32 [B] on the inputs' device) into its
+    value column, and None is returned; without one it writes f32
+    [B, d] actions and [B] logp on the device (returned)."""
     if inputs.dtype != torch.float32 or inputs.dim() != 2 \
             or inputs.shape[1] % 2:
         raise ValueError(f"diag_gaussian kernel takes [B, 2d] float32 "
                          f"inputs, got {tuple(inputs.shape)} {inputs.dtype}")
     if not inputs.is_contiguous():
         raise ValueError("diag_gaussian kernel takes contiguous inputs")
-    B, d = inputs.shape[0], inputs.shape[1] // 2
+    B, width = inputs.shape
+    d = width // 2
+    index = inputs.get_device()
     if explore:
         if z is None or z.shape != (B, d) or z.dtype != torch.float32 \
-                or z.device != inputs.device:
+                or z.get_device() != index:
             raise ValueError(
                 f"exploring needs float32 normals of shape {(B, d)} on "
                 "the inputs' device")
         if not z.is_contiguous():
             raise ValueError("diag_gaussian kernel takes contiguous "
                              "normals")
-    actions = torch.empty(B, d, dtype=torch.float32, device=inputs.device)
-    logp = torch.empty(B, dtype=torch.float32, device=inputs.device)
+    _check_value(value, record, B, index)
+    actions = logp = address = None
+    if record is None:
+        actions = torch.empty(B, d, dtype=torch.float32,
+                              device=inputs.device)
+        logp = torch.empty(B, dtype=torch.float32, device=inputs.device)
+    else:
+        _check_record(record, StepRecord, (B, width), action_dim=d)
+        address = record.address(DIAG_GAUSSIAN_KERNEL)
     DIAG_GAUSSIAN_KERNEL.launch(
         inputs.data_ptr(), z.data_ptr() if explore else None,
-        actions.data_ptr(), logp.data_ptr(), B, d, int(bool(explore)),
-        gaussian_log_norm(d), stream_handle(inputs))
-    return actions, logp
+        None if actions is None else actions.data_ptr(),
+        None if logp is None else logp.data_ptr(),
+        None if value is None else value.data_ptr(), address, B, d,
+        1 if explore else 0, gaussian_log_norm(d),
+        device_stream_handle(index))
+    return None if record is not None else (actions, logp)
 
 
 def gaussian_sample_logp(inputs: torch.Tensor,
                          z: Optional[torch.Tensor] = None,
-                         explore: bool = True
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         explore: bool = True, *,
+                         value: Optional[torch.Tensor] = None,
+                         record: Optional[StepRecord] = None
+                         ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """(actions f32 [B, d], logp f32 [B]) for DiagGaussian inputs
     [B, 2d]: mean + exp(log_std) * z when exploring, the mean otherwise.
 
+    With `record`, a StepRecord of [B, 2d] with f32 [B, d] actions
+    (pinned for CUDA inputs), the actions, the logp and the inputs go
+    there alone, `value` (f32 [B], optional) into its value column, and
+    None is returned: written by K7 on the card (complete after
+    `record.record_done` and `record.wait`), with no device output
+    allocated; copied in on the CPU.
+
     CUDA tensors launch the K7 kernel (or raise); CPU tensors take the
     plain version. No gradient flows: sampling has none."""
+    if inputs.is_cuda:
+        return _gaussian_sample_logp_cuda(inputs, z, explore, value, record)
+    if not inputs.is_cpu:
+        raise ValueError(f"no diag_gaussian kernel for {inputs.device}")
     with torch.no_grad():
-        if inputs.device.type == "cpu":
-            return _gaussian_sample_logp_plain(inputs, z, explore)
-        if inputs.device.type != "cuda":
-            raise ValueError(f"no diag_gaussian kernel for {inputs.device}")
-        return _gaussian_sample_logp_cuda(inputs, z, explore)
+        actions, logp = _gaussian_sample_logp_plain(inputs, z, explore)
+        if record is None:
+            return actions, logp
+        B, width = inputs.shape
+        _check_record(record, StepRecord, (B, width), action_dim=width // 2)
+        _fill_record(record, actions, logp, value, inputs)
+    return None
 
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -545,7 +640,7 @@ def _squashed_cuda(x: torch.Tensor, z: Optional[torch.Tensor],
                          f"of d={tail.d}")
     address = None
     if host is not None:
-        _check_record(host, ActionRecord, (B, d))
+        _check_record(host, ActionRecord, (B, d), dtype=torch.float32)
         address = host.address(SQUASHED_GAUSSIAN_KERNEL)
     actions = torch.empty((B, d), dtype=torch.float32, device=x.device)
     logp = torch.empty(B, dtype=torch.float32, device=x.device)
@@ -578,7 +673,8 @@ def _squashed_forward(x: torch.Tensor, z: Optional[torch.Tensor],
     actions, logp = _squashed_gaussian_plain(x, z, tail.low, tail.high,
                                              explore)
     if host is not None:
-        _check_record(host, ActionRecord, tuple(actions.shape))
+        _check_record(host, ActionRecord, tuple(actions.shape),
+                      dtype=torch.float32)
         with torch.no_grad():
             host.actions.copy_(actions)
     return actions, logp
@@ -679,23 +775,34 @@ class Categorical:
     def __init__(self, inputs: torch.Tensor):
         self.inputs = inputs
 
-    def sample_with_logp(self, generator: Optional[torch.Generator] = None,
-                         explore: bool = True, *,
-                         value: Optional[torch.Tensor] = None,
-                         record: Optional[StepRecord] = None):
-        """Draw actions and their logp in one pass (K2 on the card).
-        The uniforms come from `generator` on the logits' device.
-        `value` and `record`: the step record (see `sample_logp`)."""
-        logits = self.inputs
-        if logits.requires_grad:
-            logits = logits.detach()
-        if logits.dtype != torch.float32 or not logits.is_contiguous():
-            logits = logits.float().contiguous()
+    def _logits_and_noise(self, generator, explore):
+        logits = _sampling_inputs(self.inputs)
         u = None
         if explore:
             u = torch.rand(logits.shape, generator=generator,
                            dtype=torch.float32, device=logits.device)
-        return sample_logp(logits, u, explore, value=value, record=record)
+        return logits, u
+
+    def sample_with_logp(self, generator: Optional[torch.Generator] = None,
+                         explore: bool = True):
+        """Draw actions and their logp in one pass (K2 on the card).
+        The uniforms come from `generator` on the logits' device."""
+        logits, u = self._logits_and_noise(generator, explore)
+        return sample_logp(logits, u, explore)
+
+    def record_step(self, generator: Optional[torch.Generator],
+                    explore: bool, value: torch.Tensor,
+                    record: StepRecord) -> None:
+        """Draw as `sample_with_logp` does, into `record` (from
+        `step_record`): the actions, logp, logits and `value` (K2 on the
+        card; see `sample_logp`)."""
+        logits, u = self._logits_and_noise(generator, explore)
+        sample_logp(logits, u, explore, value=value, record=record)
+
+    @staticmethod
+    def step_record(rows: int, width: int, pin: bool) -> StepRecord:
+        """The step record of `rows` rows of `width` logits."""
+        return StepRecord(rows, width, pin)
 
     def sample_k_with_logp(self, generator: Optional[torch.Generator],
                            k: int, explore: bool = True,
@@ -740,23 +847,55 @@ class Categorical:
 
 
 class DiagGaussian:
-    """inputs: concat([mean, log_std], -1) over a Box of dim d."""
+    """inputs: concat([mean, log_std], -1) over a Box of dim d. `mean`,
+    `log_std` and `std` are computed at their first read (`logp`,
+    `entropy`, `kl`): sampling reads none of them."""
 
     def __init__(self, inputs: torch.Tensor):
         self.inputs = inputs
-        self.mean, self.log_std = torch.chunk(inputs, 2, dim=-1)
-        self.std = torch.exp(self.log_std)
+
+    @functools.cached_property
+    def mean(self) -> torch.Tensor:
+        return self.inputs[..., :self.inputs.shape[-1] // 2]
+
+    @functools.cached_property
+    def log_std(self) -> torch.Tensor:
+        return self.inputs[..., self.inputs.shape[-1] // 2:]
+
+    @functools.cached_property
+    def std(self) -> torch.Tensor:
+        return torch.exp(self.log_std)
+
+    def _inputs_and_noise(self, generator, explore):
+        inputs = _sampling_inputs(self.inputs)
+        z = None
+        if explore:
+            z = torch.randn(inputs.shape[:-1] + (inputs.shape[-1] // 2,),
+                            generator=generator, dtype=torch.float32,
+                            device=inputs.device)
+        return inputs, z
 
     def sample_with_logp(self, generator: Optional[torch.Generator] = None,
                          explore: bool = True):
         """Draw actions and their logp in one pass (K7 on the card).
         The normals come from `generator` on the inputs' device."""
-        inputs = self.inputs.detach().float().contiguous()
-        z = None
-        if explore:
-            z = torch.randn(self.mean.shape, generator=generator,
-                            dtype=torch.float32, device=inputs.device)
+        inputs, z = self._inputs_and_noise(generator, explore)
         return gaussian_sample_logp(inputs, z, explore)
+
+    def record_step(self, generator: Optional[torch.Generator],
+                    explore: bool, value: torch.Tensor,
+                    record: StepRecord) -> None:
+        """Draw as `sample_with_logp` does, into `record` (from
+        `step_record`) alone: the actions, logp, inputs and `value` (K7
+        on the card, with no device outputs; see
+        `gaussian_sample_logp`)."""
+        inputs, z = self._inputs_and_noise(generator, explore)
+        gaussian_sample_logp(inputs, z, explore, value=value, record=record)
+
+    @staticmethod
+    def step_record(rows: int, width: int, pin: bool) -> StepRecord:
+        """The step record of `rows` rows of `width` = 2d inputs."""
+        return StepRecord(rows, width, pin, action_dim=width // 2)
 
     def sample(self, generator: Optional[torch.Generator] = None):
         return self.sample_with_logp(generator, explore=True)[0]

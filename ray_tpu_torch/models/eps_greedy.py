@@ -11,21 +11,29 @@ on CUDA tensors and takes its plain PyTorch version,
 `_eps_greedy_plain`, on CPU tensors. The two take the same two
 uniforms per row and agree exactly on them at any epsilon. No single
 PyTorch call computes this function.
+
+The DQN policy's env step takes its actions into an int64
+`ActionRecord` in pinned host memory (`host_actions=`), which K8 writes
+through the buffer's device-mapped address, with no device output; on
+the CPU the plain version fills the same record by copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from .._private.cuda_build import CudaKernel, stream_handle
+from .._private.cuda_build import CudaKernel, device_stream_handle
+from .distributions import ActionRecord, _check_record
 
-# K8: one warp per row; see the source note in csrc/eps_greedy.cu.
+# K8: one warp per row, with the optional int64 host actions in pinned
+# host memory; see the source note in csrc/eps_greedy.cu.
 EPS_GREEDY_KERNEL = CudaKernel(
     "eps_greedy", "eps_greedy.cu", "eps_greedy",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def _eps_greedy_plain(q: torch.Tensor, u: torch.Tensor,
@@ -39,38 +47,60 @@ def _eps_greedy_plain(q: torch.Tensor, u: torch.Tensor,
     return torch.where(u[:, 0] < eps, rand, greedy)
 
 
-def _eps_greedy_cuda(q: torch.Tensor, u: torch.Tensor,
-                     eps: float) -> torch.Tensor:
-    """Launch K8 on [B, A] f32 Q-values and [B, 2] f32 uniforms.
-    Allocates the int64 [B] actions."""
+def _eps_greedy_cuda(q: torch.Tensor, u: torch.Tensor, eps: float,
+                     host_actions: Optional[ActionRecord] = None
+                     ) -> Optional[torch.Tensor]:
+    """Launch K8 on [B, A] f32 Q-values and [B, 2] f32 uniforms into
+    `host_actions`, a pinned int64 ActionRecord of [B] (returns None),
+    or without one into int64 [B] device actions (returned)."""
     if q.dtype != torch.float32 or q.dim() != 2:
         raise ValueError(f"eps_greedy kernel takes [B, A] float32 "
                          f"Q-values, got {tuple(q.shape)} {q.dtype}")
     B, A = q.shape
+    index = q.get_device()
     if u.shape != (B, 2) or u.dtype != torch.float32 \
-            or u.device != q.device:
+            or u.get_device() != index:
         raise ValueError(f"eps_greedy kernel takes float32 uniforms of "
                          f"shape {(B, 2)} on the Q-values' device")
     if not (q.is_contiguous() and u.is_contiguous()):
         raise ValueError("eps_greedy kernel takes contiguous Q-values and "
                          "uniforms")
-    actions = torch.empty(B, dtype=torch.int64, device=q.device)
-    EPS_GREEDY_KERNEL.launch(q.data_ptr(), u.data_ptr(), actions.data_ptr(),
-                             B, A, float(eps), stream_handle(q))
+    actions = address = None
+    if host_actions is None:
+        actions = torch.empty(B, dtype=torch.int64, device=q.device)
+    else:
+        _check_record(host_actions, ActionRecord, (B,), dtype=torch.int64)
+        address = host_actions.address(EPS_GREEDY_KERNEL)
+    EPS_GREEDY_KERNEL.launch(
+        q.data_ptr(), u.data_ptr(),
+        None if actions is None else actions.data_ptr(), address, B, A,
+        float(eps), device_stream_handle(index))
     return actions
 
 
-def eps_greedy(q: torch.Tensor, u: torch.Tensor, eps: float
-               ) -> torch.Tensor:
+def eps_greedy(q: torch.Tensor, u: torch.Tensor, eps: float, *,
+               host_actions: Optional[ActionRecord] = None
+               ) -> Optional[torch.Tensor]:
     """Epsilon-greedy actions (int64 [B]) for Q-values [B, A] with two
     uniforms per row, u [B, 2]: u[:, 0] decides the swap, u[:, 1] draws
     the random action.
 
+    With `host_actions`, an int64 ActionRecord of [B] (pinned for CUDA
+    Q-values), the actions go there alone and None is returned: written
+    by K8 on the card (complete after `record_done` and `wait`), with no
+    device output allocated; copied in on the CPU.
+
     CUDA tensors launch the K8 kernel (or raise); CPU tensors take the
     plain version."""
+    if q.is_cuda:
+        return _eps_greedy_cuda(q, u, eps, host_actions)
+    if not q.is_cpu:
+        raise ValueError(f"no eps_greedy kernel for {q.device}")
     with torch.no_grad():
-        if q.device.type == "cpu":
-            return _eps_greedy_plain(q, u, eps)
-        if q.device.type != "cuda":
-            raise ValueError(f"no eps_greedy kernel for {q.device}")
-        return _eps_greedy_cuda(q, u, eps)
+        actions = _eps_greedy_plain(q, u, eps)
+    if host_actions is None:
+        return actions
+    _check_record(host_actions, ActionRecord, (q.shape[0],),
+                  dtype=torch.int64)
+    host_actions.actions.copy_(actions)
+    return None

@@ -80,7 +80,10 @@ def shutdown() -> None:
 def _rank_main(fn, rank, world_size, backend, init_method, timeout, args,
                results) -> None:
     """A rank's process: join the world, run `fn`, report (rank, ok,
-    value or exception, traceback) as pickled bytes."""
+    value or exception, traceback) as pickled bytes. The report is in
+    the launcher's pipe before the rank leaves the world: a failing
+    rank's exit fails the collectives the others wait in, and their
+    reports must not reach the launcher ahead of the cause."""
     if backend == "gloo":
         # `launch` worlds live on one host: keep gloo's pair connections
         # on the loopback device instead of the hostname's address.
@@ -96,9 +99,12 @@ def _rank_main(fn, rank, world_size, backend, init_method, timeout, args,
         except Exception:  # noqa: BLE001 — an unpicklable exception
             payload = pickle.dumps(
                 (rank, False, RuntimeError(repr(e)), tb))
+    try:
+        results.put(payload)
+        results.close()
+        results.join_thread()  # the bytes are in the pipe
     finally:
         shutdown()
-    results.put(payload)
 
 
 def launch(fn: Callable, world_size: int, backend: str, *args: Any,

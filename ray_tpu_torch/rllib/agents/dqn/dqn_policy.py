@@ -12,8 +12,9 @@ exploration, `postprocess_nstep_and_prio`, and `simple_q_policy.py`):
   into it in place.
 - `compute_actions` runs the forward and then the epsilon-greedy tail,
   kernel K8 on the card (`models/eps_greedy.py`), with two uniforms per
-  row from the policy's own generator. Only the actions come back to
-  the host.
+  row from the policy's own generator. K8 writes the actions, and
+  nothing else, into a pinned int64 host output of the calling thread
+  (`ActionRecord`), and the host waits once for it.
 - `learn_with_td` is one update (`TorchPolicy.apply_update`: loss,
   backward, clip, Adam) and returns the scalar stats and |TD error|
   with one device->host read.
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ....models.catalog import observation_shape, resolve_compute_dtype
+from ....models.distributions import ActionRecord, ThreadRecords
 from ....models.eps_greedy import eps_greedy
 from ....models.networks import QNetwork
 from ... import sample_batch as sb
@@ -187,6 +189,10 @@ class DQNPolicy(TorchPolicy):
                          make_model=make_q_model,
                          postprocess_fn=postprocess_nstep_and_prio)
         self.cur_epsilon = 1.0
+        # Per-thread host outputs of `compute_actions`.
+        pin = self.device.type == "cuda"
+        self._action_records = ThreadRecords(
+            lambda rows: ActionRecord(rows, pin=pin, dtype=torch.int64))
         self.target_model = copy.deepcopy(self.model)
         for p in self.target_model.parameters():
             p.requires_grad_(False)
@@ -199,12 +205,16 @@ class DQNPolicy(TorchPolicy):
                         prev_action_batch=None, prev_reward_batch=None):
         obs = self._to_device(obs_batch)
         eps = self.cur_epsilon if explore else 0.0
+        record = self._action_records.get(obs.shape[0])
+        # The forward, the uniforms (drawn at eps 0 too) and K8 writing
+        # this thread's host output; one wait after the lock, a copy.
         with self._update_lock, torch.no_grad():
             q, _ = self.model(obs)
             u = torch.rand((q.shape[0], 2), generator=self.generator,
                            dtype=torch.float32, device=self.device)
-            actions = eps_greedy(q.contiguous(), u, eps)
-        return actions.cpu().numpy(), [], {}
+            eps_greedy(q, u, eps, host_actions=record)
+            record.record_done(self.device)
+        return record.columns(), [], {}
 
     # -- learning --------------------------------------------------------
     def learn_with_td(self, batch):

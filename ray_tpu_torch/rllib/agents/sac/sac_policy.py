@@ -47,6 +47,7 @@ import torch
 from ....device import resolve_device
 from ....models import catalog
 from ....models.distributions import (ActionRecord, SquashedTail,
+                                      ThreadRecords,
                                       squashed_gaussian_sample_logp)
 from ....models.networks import ContinuousQNetwork, StochasticActor
 from ... import sample_batch as sb
@@ -155,8 +156,10 @@ class SACPolicy(Policy):
         self._tail_constants = SquashedTail(self.low, self.high,
                                             self.action_dim)
         self._update_lock = threading.Lock()
-        # Per-thread host outputs of the acted steps (`_act_record`).
-        self._records = threading.local()
+        # Per-thread host outputs of the acted steps.
+        pin = self.device.type == "cuda"
+        self._act_records = ThreadRecords(
+            lambda rows: ActionRecord(rows, self.action_dim, pin=pin))
         self._update_count = 0
         self.global_timestep = 0
 
@@ -175,19 +178,6 @@ class SACPolicy(Policy):
         return squashed_gaussian_sample_logp(
             self.actor(obs), z, explore=explore, tail=self._tail_constants,
             host_actions=host_actions)
-
-    def _act_record(self, rows: int) -> ActionRecord:
-        """This thread's host output for `rows` acted actions (pinned on
-        a CUDA device): no two callers in flight share one, and each
-        gets a copy of it."""
-        records = getattr(self._records, "by_rows", None)
-        if records is None:
-            records = self._records.by_rows = {}
-        record = records.get(rows)
-        if record is None:
-            record = records[rows] = ActionRecord(
-                rows, self.action_dim, pin=self.device.type == "cuda")
-        return record
 
     def _normals(self, rows: int) -> torch.Tensor:
         return torch.randn((rows, self.action_dim), generator=self.generator,
@@ -220,7 +210,7 @@ class SACPolicy(Policy):
             # The normals, the actor and K9f, which also writes the
             # actions into this thread's pinned host output; one wait.
             obs = to_device(obs_batch, self.device)
-            record = self._act_record(obs.shape[0])
+            record = self._act_records.get(obs.shape[0])
             with self._update_lock, torch.no_grad():
                 z = self._normals(obs.shape[0]) if explore else None
                 self._tail(obs, z, explore, host_actions=record)

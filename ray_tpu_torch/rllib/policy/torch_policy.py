@@ -7,10 +7,9 @@ the feedforward, single-device path:
   the sampling tail (draw + logp) is the K2 kernel (Discrete) or K7
   (Box) on the card (`models/distributions.py`), with uniforms or
   normals drawn from the policy's own `torch.Generator`, seeded from
-  `config["seed"]`. For a Categorical policy K2 also writes the step's
-  actions, logp, logits and value into a pinned step record of the
-  calling thread (`StepRecord`), and the host waits once for it; a Box
-  policy copies its four columns back.
+  `config["seed"]`. The kernel also writes the step's actions, logp,
+  dist inputs and value into a pinned step record of the calling thread
+  (`StepRecord`; K7 into it alone), and the host waits once for it.
 - `learn_on_batch`: loss -> backward -> clip by global norm -> Adam,
   the optax chain of `default_optimizer` (`jax_policy.py:57-63`), run
   by `apply_update`, which leaves the stats on the device (the Anakin
@@ -69,7 +68,7 @@ import torch
 from ...device import resolve_device
 from ...models import catalog
 from ...models.convert import flax_pack_plan
-from ...models.distributions import Categorical, StepRecord, get_action_dist
+from ...models.distributions import StepRecord, ThreadRecords, get_action_dist
 from ...parallel import collectives
 from .. import sample_batch as sb
 from .policy import Policy
@@ -170,8 +169,11 @@ class TorchPolicy(Policy):
         self.update_loss_state(**(config.get("loss_state") or {}))
         self.global_timestep = 0
         self._update_lock = threading.Lock()
-        # Per-thread step records of `compute_actions` (`_step_record`).
-        self._records = threading.local()
+        # Per-thread step records of `compute_actions`.
+        pin = self.device.type == "cuda"
+        self._step_records = ThreadRecords(
+            lambda rows: self.dist_class.step_record(rows, self.dist_dim,
+                                                     pin))
         self._init_exchange(config.get("allreduce_codec", "auto"))
 
     def _init_exchange(self, codec_value) -> None:
@@ -223,50 +225,26 @@ class TorchPolicy(Policy):
     def compute_actions(self, obs_batch, state_batches=None, explore=True,
                         prev_action_batch=None, prev_reward_batch=None):
         obs = self._to_device(obs_batch)
-        if self.dist_class is Categorical:
-            record = self._step_record(obs.shape[0])
-            with self._update_lock, torch.no_grad():
-                dist_inputs, value = self.model(obs)
-                self.categorical_step(dist_inputs, value, explore, record)
-            actions, logp, value, logits = record.columns()
-            return actions, [], {sb.ACTION_LOGP: logp,
-                                 sb.ACTION_DIST_INPUTS: logits,
-                                 sb.VF_PREDS: value}
+        record = self._step_records.get(obs.shape[0])
         with self._update_lock, torch.no_grad():
             dist_inputs, value = self.model(obs)
-            actions, logp = self.dist_class(dist_inputs).sample_with_logp(
-                self.generator, explore=explore)
-        extra = {
-            sb.ACTION_LOGP: logp.cpu().numpy(),
-            sb.ACTION_DIST_INPUTS: dist_inputs.cpu().numpy(),
-            sb.VF_PREDS: value.cpu().numpy(),
-        }
-        return actions.cpu().numpy(), [], extra
+            self.sample_step(dist_inputs, value, explore, record)
+        actions, logp, value, dist_inputs = record.columns()
+        return actions, [], {sb.ACTION_LOGP: logp,
+                             sb.ACTION_DIST_INPUTS: dist_inputs,
+                             sb.VF_PREDS: value}
 
-    def categorical_step(self, dist_inputs: torch.Tensor,
-                         value: torch.Tensor, explore: bool,
-                         record: StepRecord) -> None:
-        """A Categorical env step's tail after the forward: the uniforms
-        and K2, which writes the step's actions, logp, logits and value
-        into `record` (by copy on the CPU), then the record's end mark.
-        The caller reads `record.columns()`."""
-        Categorical(dist_inputs).sample_with_logp(
-            self.generator, explore, value=value, record=record)
+    def sample_step(self, dist_inputs: torch.Tensor, value: torch.Tensor,
+                    explore: bool, record: StepRecord) -> None:
+        """An env step's tail after the forward: the uniforms (K2) or
+        normals (K7) and the kernel, which writes the step's actions,
+        logp, dist inputs and value into `record` (this thread's, made by
+        the distribution's `step_record`; by copy on the CPU), then the
+        record's end mark. The caller reads `record.columns()`: one wait,
+        then copies, so no view outlives the thread's next step."""
+        self.dist_class(dist_inputs).record_step(self.generator, explore,
+                                                 value, record)
         record.record_done(self.device)
-
-    def _step_record(self, rows: int) -> StepRecord:
-        """This thread's step record for `rows` envs (pinned on a CUDA
-        device). Each thread that calls `compute_actions` has records of
-        its own, so no two callers in flight share one; the caller gets
-        copies of its columns, so no view outlives the next step."""
-        records = getattr(self._records, "by_rows", None)
-        if records is None:
-            records = self._records.by_rows = {}
-        record = records.get(rows)
-        if record is None:
-            record = records[rows] = StepRecord(
-                rows, self.dist_dim, pin=self.device.type == "cuda")
-        return record
 
     def select(self, obs: torch.Tensor, k: int,
                generator: Optional[torch.Generator] = None,

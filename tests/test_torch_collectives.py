@@ -184,6 +184,17 @@ def test_launch_reraises_a_rank_failure_and_kills_the_rest():
     assert time.monotonic() - t0 < 100
 
 
+def test_launch_reraises_the_cause_before_the_others_failures():
+    """The failing rank's report reaches the launcher before the
+    failures its exit causes on the other ranks (their barrier fails
+    once its connections close), however long it takes to leave."""
+    with pytest.raises(ValueError, match="fails on purpose") as info:
+        launch(torch_dp_ranks.failing_rank_slow_to_leave, 3, "gloo", 1,
+               timeout=120)
+    assert any("raised on rank 1 of 3" in n
+               for n in getattr(info.value, "__notes__", []))
+
+
 def test_launch_reads_a_result_written_just_before_exit(monkeypatch):
     """A rank that writes a small result and exits at once while the
     launcher's wait is timing out is a finished rank, not a lost one:

@@ -55,6 +55,51 @@ def test_logp_entropy_kl_match_jax():
                                   jp.deterministic_sample())
 
 
+def test_lazy_std_gives_the_same_logp_entropy_kl_and_gradients():
+    """`mean`, `log_std` and `std` are computed at their first read:
+    sampling reads none of them, and `logp`, `entropy` and `kl` and
+    their gradients equal the eager formulas' (chunk and exp up front)
+    bit for bit."""
+    p, q = _inputs(32, 3, 3), _inputs(32, 3, 4)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (32, 3)).astype(np.float32))
+
+    def eager(pi, qi):
+        mean, log_std = torch.chunk(pi, 2, dim=-1)
+        q_mean, q_log_std = torch.chunk(qi, 2, dim=-1)
+        std, q_std = torch.exp(log_std), torch.exp(q_log_std)
+        logp = (-0.5 * torch.sum(((x - mean) / std) ** 2, dim=-1)
+                - distributions.gaussian_log_norm(3)
+                - torch.sum(log_std, dim=-1))
+        entropy = torch.sum(log_std, dim=-1) + 0.5 * 3 * (
+            1.0 + np.log(2.0 * np.pi))
+        kl = torch.sum(q_log_std - log_std + (std ** 2 + (mean - q_mean)
+                                              ** 2) / (2.0 * q_std ** 2)
+                       - 0.5, dim=-1)
+        return logp, entropy, kl
+
+    def lazy(pi, qi):
+        dp, dq = DiagGaussian(pi), DiagGaussian(qi)
+        dp.sample_with_logp(torch.Generator().manual_seed(0))
+        assert not {"mean", "log_std", "std"} & set(vars(dp))
+        return dp.logp(x), dp.entropy(), dp.kl(dq)
+
+    for make in (eager, lazy):
+        pi = torch.from_numpy(p).requires_grad_(True)
+        qi = torch.from_numpy(q).requires_grad_(True)
+        outs = make(pi, qi)
+        grads = [torch.autograd.grad(o.sum(), (pi, qi), allow_unused=True,
+                                     retain_graph=True)
+                 for o in outs]
+        if make is eager:
+            want = (outs, grads)
+    for got, w in zip(outs, want[0]):
+        assert torch.equal(got, w)
+    for got, w in zip(grads, want[1]):
+        for g, gw in zip(got, w):
+            assert (g is None and gw is None) or torch.equal(g, gw)
+
+
 def _numpy_tail(inputs, z, explore):
     """The K7 arithmetic in numpy float32, sums in column order."""
     d = inputs.shape[1] // 2

@@ -379,6 +379,141 @@ def test_ppo_policy_on_the_card_launches_k7_and_matches_the_cpu(cuda):
                                    err_msg=k)
 
 
+def _gaussian_inputs(B, d, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mean = torch.randn(B, d, generator=gen, device=device) * 2.0
+    log_std = torch.rand(B, d, generator=gen, device=device) * 3.0 - 2.0
+    inputs = torch.cat([mean, log_std], dim=1).contiguous()
+    value = torch.randn(B, generator=gen, device=device)
+    z = torch.randn(B, d, generator=gen, device=device)
+    return inputs, value, z
+
+
+# K7 with the step record: PPO Pendulum's 8 x 1, a 6-dim box at 256
+# envs, and a MuJoCo-sized 17-dim box at 4096.
+BOX_RECORD_SHAPES = [(8, 1), (256, 6), (4096, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d", BOX_RECORD_SHAPES)
+@pytest.mark.parametrize("explore", [True, False])
+def test_diag_gaussian_step_record_equals_device_outputs(cuda, B, d,
+                                                         explore):
+    """K7 with a pinned step record and no device outputs (null
+    pointers): after the record's event its actions and logp equal the
+    device outputs of a call without a record, and its inputs and value
+    the device tensors, bit for bit; the device outputs are within
+    GAUSSIAN_TOL of the plain version."""
+    inputs, value, z = _gaussian_inputs(B, d, cuda, seed=B * d + 7)
+    z = z if explore else None
+    record = distributions.StepRecord(B, 2 * d, pin=True, action_dim=d)
+    record.buffer.fill_(0xff)
+    before = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    actions, logp = distributions.gaussian_sample_logp(inputs, z, explore)
+    assert distributions.gaussian_sample_logp(
+        inputs, z, explore, value=value, record=record) is None
+    record.record_done(cuda)
+    got = record.columns()
+    want_actions, want_logp = distributions._gaussian_sample_logp_plain(
+        inputs, z, explore)
+    torch.testing.assert_close(actions, want_actions, rtol=GAUSSIAN_TOL,
+                               atol=GAUSSIAN_TOL)
+    torch.testing.assert_close(logp, want_logp, rtol=GAUSSIAN_TOL,
+                               atol=GAUSSIAN_TOL)
+    for g, w in zip(got, (actions, logp, value, inputs)):
+        assert g.dtype == np.float32 and g.shape == tuple(w.shape)
+        assert g.tobytes() == w.cpu().numpy().tobytes()
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_diag_gaussian_step_record_reused_over_many_steps(cuda):
+    """The policy's pattern: one record, many steps in a row on one
+    stream with no device outputs, each step's columns copied out after
+    its event and held against the same step with device outputs."""
+    record = distributions.StepRecord(8, 2, pin=True, action_dim=1)
+    for step in range(64):
+        inputs, value, z = _gaussian_inputs(8, 1, cuda, seed=step)
+        explore = step % 2 == 0
+        zz = z if explore else None
+        distributions.gaussian_sample_logp(inputs, zz, explore, value=value,
+                                           record=record)
+        record.record_done(cuda)
+        got = record.columns()
+        actions, logp = distributions.gaussian_sample_logp(inputs, zz,
+                                                           explore)
+        for g, w in zip(got, (actions, logp, value, inputs)):
+            assert g.tobytes() == w.cpu().numpy().tobytes(), step
+
+
+@pytest.mark.gpu
+def test_diag_gaussian_rejects_a_pageable_record(cuda):
+    """A record the card cannot map fails before any launch and its
+    runtime error does not leak into the next launch; a record of
+    another kind or width, or a value without a record, raises
+    ValueError."""
+    inputs, value, z = _gaussian_inputs(8, 1, cuda, seed=1)
+    before = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    with pytest.raises(RuntimeError, match="diag_gaussian"):
+        distributions.gaussian_sample_logp(
+            inputs, z, True, value=value, record=distributions.StepRecord(
+                8, 2, pin=False, action_dim=1))
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == before
+    with pytest.raises(ValueError, match="StepRecord"):
+        distributions.gaussian_sample_logp(
+            inputs, z, True, record=distributions.StepRecord(8, 2,
+                                                             pin=True))
+    with pytest.raises(ValueError, match="StepRecord"):
+        distributions.gaussian_sample_logp(
+            inputs, z, True, record=distributions.StepRecord(
+                8, 4, pin=True, action_dim=2))
+    with pytest.raises(ValueError, match="value"):
+        distributions._gaussian_sample_logp_cuda(inputs, z, True, value)
+    a, _ = distributions.gaussian_sample_logp(inputs, z, True)
+    torch.testing.assert_close(
+        a, distributions._gaussian_sample_logp_plain(inputs, z, True)[0],
+        rtol=GAUSSIAN_TOL, atol=GAUSSIAN_TOL)
+
+
+@pytest.mark.gpu
+def test_box_policy_step_record_on_the_card_matches_the_cpu(cuda):
+    """`compute_actions` of a Box PPO policy on the card (f32 model, mean
+    actions) returns the CPU policy's four columns, with the same dtypes
+    and shapes, step after step, launching K7 once per step; exploring,
+    the card's actions are finite and its logp is the CPU's formula at
+    them."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.ppo import PPOTorchPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box
+    cfg = {"model": {"fcnet_hiddens": [64, 64], "free_log_std": True},
+           "seed": 0}
+    obs_space, act_space = Box(-8.0, 8.0, (3,)), Box(-2.0, 2.0, (2,))
+    card = PPOTorchPolicy(obs_space, act_space, dict(cfg, device="cuda"))
+    host = PPOTorchPolicy(obs_space, act_space, dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    rng = np.random.default_rng(0)
+    k7 = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    for step in range(20):
+        obs = rng.standard_normal((8, 3)).astype(np.float32)
+        got = card.compute_actions(obs, explore=False)
+        want = host.compute_actions(obs, explore=False)
+        assert got[0].dtype == want[0].dtype == np.float32
+        assert got[0].shape == want[0].shape == (8, 2)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+        for k in (sb.ACTION_LOGP, sb.ACTION_DIST_INPUTS, sb.VF_PREDS):
+            assert got[2][k].dtype == want[2][k].dtype == np.float32, k
+            assert got[2][k].shape == want[2][k].shape, k
+            np.testing.assert_allclose(got[2][k], want[2][k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+    actions, _, extra = card.compute_actions(obs)
+    assert np.isfinite(actions).all()
+    want_logp = distributions.DiagGaussian(torch.from_numpy(
+        extra[sb.ACTION_DIST_INPUTS])).logp(torch.from_numpy(actions))
+    np.testing.assert_allclose(extra[sb.ACTION_LOGP], want_logp.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == k7 + 21
+
+
 def _q_values(B, A, device, seed):
     """Q-values with, from B=4 on, a row of ties, a row holding a NaN,
     an all-NaN row and a row tied at its maximum."""
@@ -489,6 +624,92 @@ def test_dqn_policy_on_the_card_launches_k8_and_matches_the_cpu(cuda,
         np.testing.assert_allclose(got[k], v, rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     np.testing.assert_allclose(got_td, want_td, rtol=1e-4, atol=1e-4)
+
+
+# K8 with the host output: the DQN Atari path's 1 x 6, CartPole's 1 x 2,
+# and the full Atari action set at 32 and 4096 rows (ties and NaN rows).
+HOST_ACTION_SHAPES = [(1, 6), (1, 2), (32, 18), (4096, 18)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,A", HOST_ACTION_SHAPES)
+@pytest.mark.parametrize("eps", [0.0, 0.3, 1.0])
+def test_eps_greedy_host_actions_equal_device_actions(cuda, B, A, eps):
+    """K8 with a pinned int64 host output and no device output (a null
+    pointer): after its event the host actions equal the device actions
+    of a call without a host output and the plain version's."""
+    q, u = _q_values(B, A, cuda, seed=B * A + 3)
+    host = distributions.ActionRecord(B, pin=True, dtype=torch.int64)
+    host.buffer.fill_(0xff)
+    before = eps_greedy.EPS_GREEDY_KERNEL.launches
+    got = eps_greedy.eps_greedy(q, u, eps)
+    assert eps_greedy.eps_greedy(q, u, eps, host_actions=host) is None
+    host.record_done(cuda)
+    want = eps_greedy._eps_greedy_plain(q, u, eps)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(host.columns(), got.cpu().numpy())
+    assert eps_greedy.EPS_GREEDY_KERNEL.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_eps_greedy_host_actions_reused_over_many_steps(cuda):
+    """The policy's pattern: one host output, many steps in a row on one
+    stream with no device output, each step's actions copied out after
+    its event and held against the plain version."""
+    host = distributions.ActionRecord(1, pin=True, dtype=torch.int64)
+    for step in range(64):
+        q, u = _q_values(1, 6, cuda, seed=step)
+        eps = (0.0, 0.3, 1.0)[step % 3]
+        eps_greedy.eps_greedy(q, u, eps, host_actions=host)
+        host.record_done(cuda)
+        got = host.columns()
+        np.testing.assert_array_equal(
+            got, eps_greedy._eps_greedy_plain(q, u, eps).cpu().numpy(),
+            err_msg=str(step))
+
+
+@pytest.mark.gpu
+def test_eps_greedy_rejects_a_pageable_host_output(cuda):
+    """A host output the card cannot map fails before any launch and its
+    runtime error does not leak into the next launch; one of another
+    dtype or shape raises ValueError."""
+    q, u = _q_values(4, 6, cuda, seed=2)
+    before = eps_greedy.EPS_GREEDY_KERNEL.launches
+    with pytest.raises(RuntimeError, match="eps_greedy"):
+        eps_greedy.eps_greedy(q, u, 0.3, host_actions=distributions.
+                              ActionRecord(4, pin=False, dtype=torch.int64))
+    assert eps_greedy.EPS_GREEDY_KERNEL.launches == before
+    with pytest.raises(ValueError, match="ActionRecord"):
+        eps_greedy.eps_greedy(q, u, 0.3, host_actions=distributions.
+                              ActionRecord(4, pin=True))
+    with pytest.raises(ValueError, match="ActionRecord"):
+        eps_greedy.eps_greedy(q, u, 0.3, host_actions=distributions.
+                              ActionRecord(5, pin=True, dtype=torch.int64))
+    got = eps_greedy.eps_greedy(q, u, 0.3)
+    assert torch.equal(got, eps_greedy._eps_greedy_plain(q, u, 0.3))
+
+
+@pytest.mark.gpu
+def test_dqn_policy_host_actions_on_the_card_match_the_cpu(cuda):
+    """`compute_actions` of a DQN policy on the card (f32 model, greedy
+    actions) returns the CPU policy's int64 actions step after step,
+    launching K8 once per step."""
+    from ray_tpu_torch.rllib.agents.dqn import DQNPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box, Discrete
+    cfg = {"model": {"fcnet_hiddens": [64]}, "hiddens": [64], "seed": 0}
+    space = Box(-1.0, 1.0, (4,))
+    card = DQNPolicy(space, Discrete(6), dict(cfg, device="cuda"))
+    host = DQNPolicy(space, Discrete(6), dict(cfg, device="cpu"))
+    host.set_weights(card.get_weights())
+    rng = np.random.default_rng(0)
+    k8 = eps_greedy.EPS_GREEDY_KERNEL.launches
+    for step in range(20):
+        obs = rng.standard_normal((16, 4)).astype(np.float32)
+        got, _, extra = card.compute_actions(obs, explore=False)
+        want, _, _ = host.compute_actions(obs, explore=False)
+        assert got.dtype == want.dtype == np.int64 and extra == {}
+        np.testing.assert_array_equal(got, want)
+    assert eps_greedy.EPS_GREEDY_KERNEL.launches == k8 + 20
 
 
 def _squashed_inputs(B, d, device, seed, margin=0.0):

@@ -1,18 +1,20 @@
-"""The per-step host records of the two sampling tails, on the CPU.
+"""The per-step host records of the four sampling tails, on the CPU.
 
-`TorchPolicy.compute_actions` (a Categorical policy) and
-`SACPolicy.compute_actions` hand K2 and K9f a host record that the
-kernel fills on the card and the plain version fills by copy here. These
-tests hold, on the CPU:
+`TorchPolicy.compute_actions` (a Categorical or a Box policy),
+`DQNPolicy.compute_actions` and `SACPolicy.compute_actions` hand K2, K7,
+K8 and K9f a host record that the kernel fills on the card and the
+plain version fills by copy here. These tests hold, on the CPU:
 
-- the record's layout (the one `csrc/categorical.cu` writes);
+- the records' layouts (the ones `csrc/categorical.cu`,
+  `csrc/diag_gaussian.cu` and `csrc/eps_greedy.cu` write);
 - that a fragment's columns are, row for row, what each step drew (a
   record reused without a copy would leave every row the last step's);
 - that two threads calling `compute_actions` at once each get their own
   columns;
-- that the sampler's batches for IMPALA, PPO and SAC are byte-equal to
-  those of the tails as they were before the records (each env step's
-  columns read back with `.cpu()`), for the same seeds;
+- that the sampler's batches for IMPALA, PPO (discrete and Box), DQN
+  and SAC are byte-equal to those of the tails as they were before the
+  records (each env step's columns read back with `.cpu()`), for the
+  same seeds;
 - that `get_action_dist` raises the reference's error types.
 """
 
@@ -27,9 +29,11 @@ import torch
 from ray_tpu.models.distributions import get_action_dist as jax_get_dist
 from ray_tpu.rllib.env import spaces as jax_spaces
 from ray_tpu_torch.models import distributions
+from ray_tpu_torch.models import eps_greedy as k8
 from ray_tpu_torch.models.distributions import (ActionRecord, StepRecord,
                                                 get_action_dist)
 from ray_tpu_torch.rllib import sample_batch as sb
+from ray_tpu_torch.rllib.agents.dqn import DQNPolicy, dqn_policy
 from ray_tpu_torch.rllib.agents.impala.vtrace_policy import VTraceTorchPolicy
 from ray_tpu_torch.rllib.agents.ppo import PPOTorchPolicy
 from ray_tpu_torch.rllib.agents.sac import SACPolicy
@@ -53,14 +57,49 @@ def test_step_record_layout_is_the_kernels(B, A):
             (record.actions, 0, torch.int64, (B,)),
             (record.logp, 8 * B, torch.float32, (B,)),
             (record.value, 12 * B, torch.float32, (B,)),
-            (record.logits, 16 * B, torch.float32, (B, A))):
+            (record.inputs, 16 * B, torch.float32, (B, A))):
         assert column.data_ptr() - base == offset
         assert column.dtype == dtype and tuple(column.shape) == shape
     for view, column in zip(record.numpy, (record.actions, record.logp,
-                                           record.value, record.logits)):
+                                           record.value, record.inputs)):
         assert view.ctypes.data == column.data_ptr()
     host = ActionRecord(B, A, pin=False)
     assert host.buffer.numel() == 4 * B * A
+    assert host.numpy.ctypes.data == host.buffer.data_ptr()
+
+
+@pytest.mark.parametrize("B,d", [(8, 1), (256, 6), (3, 17)])
+def test_box_step_record_layout_is_the_kernels(B, d):
+    """K7's record: actions f32 [B, d] | logp f32 [B] | value f32 [B] |
+    inputs f32 [B, 2d], back to back from the buffer's start; the
+    distribution's `step_record` makes it."""
+    record = distributions.DiagGaussian.step_record(B, 2 * d, pin=False)
+    assert record.shape == (B, 2 * d) and record.action_dim == d
+    base = record.buffer.data_ptr()
+    assert record.buffer.numel() == 4 * B * (d + 2 + 2 * d)
+    for column, offset, shape in (
+            (record.actions, 0, (B, d)),
+            (record.logp, 4 * B * d, (B,)),
+            (record.value, 4 * B * (d + 1), (B,)),
+            (record.inputs, 4 * B * (d + 2), (B, 2 * d))):
+        assert column.data_ptr() - base == offset
+        assert column.dtype == torch.float32
+        assert tuple(column.shape) == shape
+    for view, column in zip(record.numpy, (record.actions, record.logp,
+                                           record.value, record.inputs)):
+        assert view.ctypes.data == column.data_ptr()
+    cat = distributions.Categorical.step_record(B, 5, pin=False)
+    assert cat.action_dim is None and cat.actions.dtype == torch.int64
+
+
+@pytest.mark.parametrize("B", [1, 16, 4096])
+def test_int64_action_record_layout_is_k8s(B):
+    """K8's host output: int64 [B] from the buffer's start."""
+    host = ActionRecord(B, pin=False, dtype=torch.int64)
+    assert host.shape == (B,) and host.dtype == torch.int64
+    assert host.buffer.numel() == 8 * B
+    assert host.actions.data_ptr() == host.buffer.data_ptr()
+    assert host.numpy.dtype == np.int64 and host.numpy.shape == (B,)
     assert host.numpy.ctypes.data == host.buffer.data_ptr()
 
 
@@ -87,6 +126,55 @@ def test_cpu_record_gets_what_the_plain_tail_returns():
     with pytest.raises(ValueError, match="StepRecord"):
         distributions.sample_logp(logits, u, True,
                                   record=StepRecord(7, 6, pin=False))
+
+
+@pytest.mark.parametrize("explore", [True, False])
+def test_cpu_box_record_gets_what_the_plain_tail_returns(explore):
+    """On the CPU, `gaussian_sample_logp` without a record returns the
+    plain version's columns; with a Box step record it returns None and
+    fills the record with the same columns by copy; a record of another
+    kind raises."""
+    gen = torch.Generator().manual_seed(2)
+    inputs = torch.randn(6, 4, generator=gen)
+    value = torch.randn(6, generator=gen)
+    z = torch.randn(6, 2, generator=gen) if explore else None
+    actions, logp = distributions._gaussian_sample_logp_plain(inputs, z,
+                                                              explore)
+    record = StepRecord(6, 4, pin=False, action_dim=2)
+    before = distributions.DIAG_GAUSSIAN_KERNEL.launches
+    out = distributions.gaussian_sample_logp(inputs, z, explore)
+    assert torch.equal(out[0], actions) and torch.equal(out[1], logp)
+    record.buffer.zero_()
+    assert distributions.gaussian_sample_logp(
+        inputs, z, explore, value=value, record=record) is None
+    got = record.columns()
+    for g, w in zip(got, (actions, logp, value, inputs)):
+        assert g.tobytes() == w.numpy().tobytes()
+    assert distributions.DIAG_GAUSSIAN_KERNEL.launches == before
+    with pytest.raises(ValueError, match="StepRecord"):
+        distributions.gaussian_sample_logp(
+            inputs, z, explore, record=StepRecord(6, 4, pin=False))
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.5, 1.0])
+def test_cpu_int64_record_gets_the_eps_greedy_actions(eps):
+    """On the CPU, `eps_greedy` without a host output returns the plain
+    version's actions; with an int64 host output it returns None and
+    fills it by copy; a host output of another dtype or shape raises."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(9, 6, generator=gen)
+    u = torch.rand(9, 2, generator=gen)
+    want = k8._eps_greedy_plain(q, u, eps)
+    host = ActionRecord(9, pin=False, dtype=torch.int64)
+    assert torch.equal(k8.eps_greedy(q, u, eps), want)
+    host.buffer.zero_()
+    assert k8.eps_greedy(q, u, eps, host_actions=host) is None
+    np.testing.assert_array_equal(host.columns(), want.numpy())
+    with pytest.raises(ValueError, match="ActionRecord"):
+        k8.eps_greedy(q, u, eps, host_actions=ActionRecord(9, pin=False))
+    with pytest.raises(ValueError, match="ActionRecord"):
+        k8.eps_greedy(q, u, eps, host_actions=ActionRecord(
+            8, pin=False, dtype=torch.int64))
 
 
 def test_cpu_action_record_gets_the_squashed_actions():
@@ -144,6 +232,63 @@ def test_fragment_rows_are_each_steps_draws(monkeypatch):
     assert not np.array_equal(draws[0][3].numpy(), draws[-1][3].numpy())
 
 
+def _dqn_worker(T, num_envs, eps):
+    worker = _cartpole_worker(DQNPolicy, T, num_envs, use_gae=False)
+    worker.policy.set_epsilon(eps)
+    return worker
+
+
+@pytest.mark.parametrize("kind", ["diag_gaussian", "eps_greedy"])
+def test_box_and_dqn_fragment_rows_are_each_steps_draws(kind, monkeypatch):
+    """As above for the two tails that write only the record: 2 Pendulum
+    envs x 12 steps of a Box PPO policy (ACTIONS, ACTION_LOGP, VF_PREDS
+    and ACTION_DIST_INPUTS against the plain tail on each step's inputs
+    and normals), and 3 CartPole envs x 12 steps of DQN at epsilon 0.5
+    (ACTIONS against the plain tail on each step's Q-values and
+    uniforms)."""
+    T, draws = 12, []
+    if kind == "diag_gaussian":
+        n, real = 2, distributions.gaussian_sample_logp
+
+        def spy(inputs, z=None, explore=True, **kw):
+            a, logp = distributions._gaussian_sample_logp_plain(
+                inputs, z, explore)
+            draws.append((a, logp, kw["value"].clone(), inputs.clone()))
+            return real(inputs, z, explore, **kw)
+
+        monkeypatch.setattr(distributions, "gaussian_sample_logp", spy)
+        worker = RolloutWorker(
+            env_creator=lambda cfg: make_env("Pendulum-v0", cfg),
+            policy_cls=PPOTorchPolicy,
+            policy_config={"model": {"fcnet_hiddens": [8],
+                                     "free_log_std": True},
+                           "device": "cpu"},
+            num_envs=n, rollout_fragment_length=T, seed=0,
+            pack_fragments=True)
+        cols = (sb.ACTIONS, sb.ACTION_LOGP, sb.VF_PREDS,
+                sb.ACTION_DIST_INPUTS)
+    else:
+        n, real = 3, dqn_policy.eps_greedy
+
+        def spy(q, u, eps, **kw):
+            draws.append((k8._eps_greedy_plain(q, u, eps),))
+            return real(q, u, eps, **kw)
+
+        monkeypatch.setattr(dqn_policy, "eps_greedy", spy)
+        worker = _dqn_worker(T, n, 0.5)
+        cols = (sb.ACTIONS,)
+    batch = worker.sample()
+    worker.stop()
+    assert len(draws) == T and batch.count == n * T
+    for k, col in enumerate(cols):
+        got = np.asarray(batch[col]).reshape((n, T) + draws[0][k].shape[1:])
+        want = np.stack([d[k].numpy() for d in draws], axis=1)
+        assert got.dtype == want.dtype, col
+        np.testing.assert_array_equal(got, want, err_msg=col)
+    assert not np.array_equal(draws[0][0].numpy(), draws[-1][0].numpy()) \
+        or not np.array_equal(draws[1][0].numpy(), draws[-2][0].numpy())
+
+
 # ---------------------------------------------------------------------
 # two threads at once
 # ---------------------------------------------------------------------
@@ -151,15 +296,29 @@ OBS_DIM = 4
 
 
 def _policy(kind):
+    obs_space = spaces.Box(-1.0, 1.0, (OBS_DIM,))
     if kind == "categorical":
         return VTraceTorchPolicy(
-            spaces.Box(-1.0, 1.0, (OBS_DIM,)), spaces.Discrete(5),
+            obs_space, spaces.Discrete(5),
             {"model": {"fcnet_hiddens": [16]}, "device": "cpu", "seed": 0})
-    return SACPolicy(spaces.Box(-1.0, 1.0, (OBS_DIM,)),
+    if kind == "diag_gaussian":
+        return PPOTorchPolicy(
+            obs_space, spaces.Box(-2.0, 2.0, (3,)),
+            {"model": {"fcnet_hiddens": [16]}, "device": "cpu", "seed": 0})
+    if kind == "eps_greedy":
+        return DQNPolicy(obs_space, spaces.Discrete(5),
+                         {"model": {"fcnet_hiddens": [16]}, "hiddens": [16],
+                          "device": "cpu", "seed": 0})
+    return SACPolicy(obs_space,
                      spaces.Box(-2.0, 2.0, (2,)),
                      {"actor_hiddens": [16], "critic_hiddens": [16],
                       "pure_exploration_steps": 0, "device": "cpu",
                       "seed": 0})
+
+
+THREAD_KINDS = ["categorical", "squashed", "diag_gaussian", "eps_greedy"]
+RECORD_CLASS = {"categorical": StepRecord, "diag_gaussian": StepRecord,
+                "squashed": ActionRecord, "eps_greedy": ActionRecord}
 
 
 def _obs(seed, n=6):
@@ -174,7 +333,7 @@ def _same(got, want):
         np.testing.assert_array_equal(got[2][k], want[2][k], err_msg=k)
 
 
-@pytest.mark.parametrize("kind", ["categorical", "squashed"])
+@pytest.mark.parametrize("kind", THREAD_KINDS)
 def test_two_threads_in_flight_get_their_own_columns(kind, monkeypatch):
     """Thread A's step fills its record and stops before reading it;
     the main thread runs a whole step of the same batch size; then A
@@ -184,7 +343,8 @@ def test_two_threads_in_flight_get_their_own_columns(kind, monkeypatch):
     obs_a, obs_b = _obs(1), _obs(2)
     want_a = policy.compute_actions(obs_a, explore=False)
     want_b = policy.compute_actions(obs_b, explore=False)
-    cls = StepRecord if kind == "categorical" else ActionRecord
+    assert not np.array_equal(want_a[0], want_b[0])
+    cls = RECORD_CLASS[kind]
     filled, other_done = threading.Event(), threading.Event()
     real_columns = cls.columns
 
@@ -209,7 +369,19 @@ def test_two_threads_in_flight_get_their_own_columns(kind, monkeypatch):
     _same(out["b"], want_b)
 
 
-@pytest.mark.parametrize("kind", ["categorical", "squashed"])
+@pytest.mark.parametrize("kind", THREAD_KINDS)
+def test_columns_outlive_the_next_step(kind):
+    """What `compute_actions` returns is the caller's: the next step of
+    the same batch size, which reuses the record, leaves it as it was."""
+    policy = _policy(kind)
+    first = policy.compute_actions(_obs(5), explore=False)
+    kept = (first[0].copy(), {k: v.copy() for k, v in first[2].items()})
+    second = policy.compute_actions(_obs(6), explore=False)
+    assert not np.array_equal(second[0], kept[0])
+    _same(first, kept[:1] + (None, kept[1]))
+
+
+@pytest.mark.parametrize("kind", THREAD_KINDS)
 def test_many_steps_from_two_threads_get_their_own_columns(kind):
     """Two threads, 100 steps each, the same batch size, free-running."""
     policy = _policy(kind)
@@ -237,10 +409,11 @@ def test_many_steps_from_two_threads_get_their_own_columns(kind):
 # ---------------------------------------------------------------------
 # batches byte-equal to the tails as they were before the records
 # ---------------------------------------------------------------------
-def _before_categorical(self, obs_batch, state_batches=None, explore=True,
+def _before_step_record(self, obs_batch, state_batches=None, explore=True,
                         prev_action_batch=None, prev_reward_batch=None):
-    """`TorchPolicy.compute_actions` before the step record: the tail,
-    then the four columns read back with `.cpu()`."""
+    """`TorchPolicy.compute_actions` before the step record (a Box
+    policy's until it took one too): the tail, then the four columns
+    read back with `.cpu()`."""
     obs = self._to_device(obs_batch)
     with self._update_lock, torch.no_grad():
         dist_inputs, value = self.model(obs)
@@ -250,6 +423,20 @@ def _before_categorical(self, obs_batch, state_batches=None, explore=True,
              sb.ACTION_DIST_INPUTS: dist_inputs.cpu().numpy(),
              sb.VF_PREDS: value.cpu().numpy()}
     return actions.cpu().numpy(), [], extra
+
+
+def _before_dqn(self, obs_batch, state_batches=None, explore=True,
+                prev_action_batch=None, prev_reward_batch=None):
+    """`DQNPolicy.compute_actions` before the host output: the forward,
+    the uniforms and the tail, the actions read back with `.cpu()`."""
+    obs = self._to_device(obs_batch)
+    eps = self.cur_epsilon if explore else 0.0
+    with self._update_lock, torch.no_grad():
+        q, _ = self.model(obs)
+        u = torch.rand((q.shape[0], 2), generator=self.generator,
+                       dtype=torch.float32, device=self.device)
+        actions = k8.eps_greedy(q.contiguous(), u, eps)
+    return actions.cpu().numpy(), [], {}
 
 
 def _before_sac(self, obs_batch, state_batches=None, explore=True,
@@ -275,14 +462,15 @@ def _pendulum_worker(policy_cls, config, seed=0, explore=True):
 
 SAMPLERS = {
     "impala": (lambda: _cartpole_worker(VTraceTorchPolicy, 10, 3),
-               _before_categorical),
+               _before_step_record),
     "ppo_discrete": (lambda: _cartpole_worker(PPOTorchPolicy, 10, 3,
                                               use_gae=True),
-                     _before_categorical),
+                     _before_step_record),
     "ppo_box": (lambda: _pendulum_worker(
         PPOTorchPolicy, {"model": {"fcnet_hiddens": [8],
                                    "free_log_std": True}}),
-                _before_categorical),
+                _before_step_record),
+    "dqn": (lambda: _dqn_worker(10, 3, 0.5), _before_dqn),
     "sac": (lambda: _pendulum_worker(
         SACPolicy, {"actor_hiddens": [8], "critic_hiddens": [8],
                     "pure_exploration_steps": 0, "use_gae": False}), _before_sac),

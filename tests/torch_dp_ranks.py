@@ -190,6 +190,26 @@ def failing_rank(rank, fail_rank):
     return rank
 
 
+def failing_rank_slow_to_leave(rank, fail_rank):
+    """As `failing_rank`, but the failing rank takes 2 s to leave the
+    world after it has closed its connections (the others' barrier
+    fails at once): its report must still reach the launcher first."""
+    import time
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import distributed
+    if rank == fail_rank:
+        leave = distributed.shutdown
+
+        def slow_shutdown():
+            leave()
+            time.sleep(2.0)
+
+        distributed.shutdown = slow_shutdown
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+    return rank
+
+
 def sleeping_rank(rank, seconds):
     import time
     time.sleep(seconds)
