@@ -133,8 +133,13 @@ of ties and of NaN (the actions and host actions equal); K9f and
 K9b, the squashed-Gaussian tail and its backward, at the SAC path's 1 x 1
 and 256 x 1 (both timed), 256 x 6 and 4096 x 17, at low/high = +-2, with
 raw log_std beyond both clip bounds and |pre| >= 10, exploring and not;
-the backward with both upstream gradients, each absent, and through the
-autograd function (SQUASHED_TOL).
+the backward with both upstream gradients, each absent, g_a a column
+slice of a concat gradient and g_logp an expand (read in place), and
+through the autograd function (SQUASHED_TOL). K1, V-trace, is held on
+the learner's batch-major views (strides (1, T), read in place) and on
+dense time-major inputs at 50 x 32, 16 x 4096 and 25 x 64 (the three
+timed on the views, with the device operations one call enqueues), 20 x
+32, 500 x 4096 (double-buffered chunks) and 50 x 37 (VTRACE_TOL).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it a JSON object with one entry
@@ -387,6 +392,24 @@ def device_ms(fn, kernel_symbol, reps=200, cold=False):
         e.count for e in hits)
 
 
+def device_work_per_call(fn, reps=100):
+    """(CUDA kernels and copies, their device milliseconds) that one
+    call of `fn` enqueues (torch.profiler, after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              and e.self_device_time_total > 0]
+    return (sum(e.count for e in events) / reps,
+            sum(e.self_device_time_total for e in events) / 1e3 / reps)
+
+
 def bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -416,37 +439,73 @@ def vtrace_inputs(T, B, seed):
         bootstrap_value=torch.randn(B, generator=g, device="cuda"))
 
 
+def vtrace_bytes_ops(T, B):
+    """K1's bytes (four [T, B] f32 inputs and the [B] bootstrap read once,
+    the two [T, B] f32 outputs written once) and f32 operations (~17 per
+    element)."""
+    return 4 * (6 * T * B + B), 17 * T * B
+
+
+def vtrace_layout(inputs, T, layout):
+    """K1's inputs as the learner hands them ("batch_major": discounts,
+    rewards and values are [B * T] batch-major columns seen through
+    `vtrace_policy._time_major`, strides (1, T); log_rhos and the
+    bootstrap stay dense, as `from_logits` makes them) or all dense
+    ("time_major")."""
+    if layout == "time_major":
+        return inputs
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import _time_major
+    return dict(inputs, **{
+        k: _time_major(inputs[k].t().contiguous().reshape(-1), T)
+        for k in ("discounts", "rewards", "values")})
+
+
 def check_vtrace(T, B, timed):
+    """K1 against its plain version on the learner's batch-major views
+    and on dense time-major inputs (VTRACE_TOL). Timed on the batch-major
+    views, the path's layout: per call (CUDA events), the kernel's
+    device time (profiler) and the device operations the call enqueues;
+    the dense call and the plain version beside them."""
     import torch
     from ray_tpu_torch.rllib.agents.impala import vtrace
     inputs = vtrace_inputs(T, B, seed=T * B)
-    got = vtrace.from_importance_weights(**inputs)
     want = vtrace._from_importance_weights_plain(
         *inputs.values(), 1.0, 1.0, 1.0)
-    torch.cuda.synchronize()
     err = 0.0
-    for g, w in ((got.vs, want.vs), (got.pg_advantages,
-                                     want.pg_advantages)):
-        bad = (g - w).abs() > VTRACE_TOL + VTRACE_TOL * w.abs()
-        if bool(bad.any()) or not bool(torch.isfinite(g).all()):
-            raise AssertionError(
-                f"vtrace kernel disagrees with plain at T={T} B={B}: "
-                f"max err {float((g - w).abs().max())}")
-        err = max(err, float((g - w).abs().max()))
+    views = {}
+    for layout in ("batch_major", "time_major"):
+        views[layout] = vtrace_layout(inputs, T, layout)
+        got = vtrace.from_importance_weights(**views[layout])
+        torch.cuda.synchronize()
+        for g, w in ((got.vs, want.vs), (got.pg_advantages,
+                                         want.pg_advantages)):
+            bad = (g - w).abs() > VTRACE_TOL + VTRACE_TOL * w.abs()
+            if bool(bad.any()) or not bool(torch.isfinite(g).all()):
+                raise AssertionError(
+                    f"vtrace kernel disagrees with plain at T={T} B={B} "
+                    f"({layout}): max err {float((g - w).abs().max())}")
+            err = max(err, float((g - w).abs().max()))
     row = {"T": T, "B": B, "max_abs_err": err}
     if timed:
-        row["ms"] = time_call(
+        path = lambda: vtrace.from_importance_weights(  # noqa: E731
+            **views["batch_major"])
+        row["ms"] = time_call(path, reps=2000)
+        row["dense_ms"] = time_call(
             lambda: vtrace.from_importance_weights(**inputs), reps=2000)
         row["plain_ms"] = time_call(
             lambda: vtrace._from_importance_weights_plain(
                 *inputs.values(), 1.0, 1.0, 1.0), reps=100, warmup=3)
-        row["device_ms"] = device_ms(
-            lambda: vtrace.from_importance_weights(**inputs),
-            "vtrace_kernel")
+        row["device_ms"] = device_ms(path, "vtrace_kernel")
+        row["device_ops"] = device_work_per_call(path)[0]
+        row["bound_ms"], row["bound_by"] = bound_ms(*vtrace_bytes_ops(T, B))
     log(f"  vtrace T={T} B={B}: max_abs_err={err:.3e} "
-        f"(tol {VTRACE_TOL} + {VTRACE_TOL}*|plain|)"
-        + (f" kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-           f"(kernel device-only {row['device_ms']} ms)" if timed else ""))
+        f"(tol {VTRACE_TOL} + {VTRACE_TOL}*|plain|; batch-major views "
+        f"and dense)"
+        + (f" kernel {row['ms']:.5f} ms on the views ({row['dense_ms']:.5f} "
+           f"dense) plain {row['plain_ms']:.5f} ms (kernel device-only "
+           f"{row['device_ms']} ms, {row['device_ops']} device operations "
+           f"per call; bound {row['bound_ms']:.3e} ms, {row['bound_by']})"
+           if timed else ""))
     return row
 
 
@@ -1095,12 +1154,19 @@ def check_squashed_gaussian(B, d, timed):
     g = torch.Generator(device="cuda").manual_seed(B + d)
     ga = torch.randn(B, d, generator=g, device="cuda")
     gl = torch.randn(B, generator=g, device="cuda")
+    # As autograd hands them to the tail: in SAC's actor step g_a is a
+    # column slice of the critics' concat gradient (row stride obs_dim +
+    # d; Pendulum's obs_dim is 3); the sum of a logp gives an expand.
+    ga_slice = torch.randn(B, 3 + d, generator=g, device="cuda")[:, 3:]
+    gl_expand = torch.randn(1, generator=g, device="cuda").expand(B)
     err_b = 0.0
-    for g_a, g_l in ((ga, gl), (None, gl), (ga, None)):
+    for g_a, g_l in ((ga, gl), (None, gl), (ga, None), (ga_slice, gl),
+                     (ga_slice, gl_expand), (None, gl_expand)):
         got = D._squashed_gaussian_backward_cuda(xb, zb, g_a, g_l, low,
                                                  high, True)
-        want = D._squashed_gaussian_backward_plain(xb, zb, g_a, g_l, low,
-                                                   high, True)
+        want = D._squashed_gaussian_backward_plain(
+            xb, zb, None if g_a is None else g_a.contiguous(),
+            None if g_l is None else g_l.contiguous(), low, high, True)
         torch.cuda.synchronize()
         err_b = max(err_b, _close(got, want, f"squashed_gaussian backward "
                                               f"at B={B} d={d}"))
@@ -1124,24 +1190,28 @@ def check_squashed_gaussian(B, d, timed):
         row["grad_ms"] = time_call(lambda: D.squashed_gaussian_sample_logp(
             xg, z, low, high, True), reps=2000)
         row["tail_ms"] = host_ms(k9f_act_tail(x, low, high), reps=2000)
-        row["b_ms"] = time_call(lambda: D._squashed_gaussian_backward_cuda(
-            xb, zb, ga, gl, low, high, True), reps=2000)
+        strided = lambda: D._squashed_gaussian_backward_cuda(  # noqa: E731
+            xb, zb, ga_slice, gl, low, high, True)
+        row["b_ms"] = time_call(strided, reps=2000)
+        row["b_dense_ms"] = time_call(
+            lambda: D._squashed_gaussian_backward_cuda(
+                xb, zb, ga, gl, low, high, True), reps=2000)
         row["b_plain_ms"] = time_call(
             lambda: D._squashed_gaussian_backward_plain(
                 xb, zb, ga, gl, low, high, True), reps=500)
-        row["b_device_ms"] = device_ms(
-            lambda: D._squashed_gaussian_backward_cuda(
-                xb, zb, ga, gl, low, high, True),
-            "squashed_gaussian_backward_kernel")
+        row["b_device_ms"] = device_ms(strided,
+                                       "squashed_gaussian_backward_kernel")
     log(f"  squashed_gaussian B={B} d={d}: forward max_abs_err={err:.3e}, "
         f"backward {err_b:.3e} (tol {SQUASHED_TOL} + {SQUASHED_TOL}"
-        f"*|plain|; backward with g_a, g_logp, each absent, and through "
-        f"autograd), host actions equal"
+        f"*|plain|; backward with g_a, g_logp, each absent, g_a a column "
+        f"slice and g_logp an expand, and through autograd), host actions "
+        f"equal"
         + (f"; K9f {row['ms']:.5f} ms ({row['grad_ms']:.5f} for an input "
            f"that needs a gradient) plain {row['plain_ms']:.5f} ms "
            f"(device-only {row['device_ms']} ms), the acting tail "
            f"{row['tail_ms']:.5f} ms of host time; K9b {row['b_ms']:.5f} "
-           f"ms plain {row['b_plain_ms']:.5f} ms (device-only "
+           f"ms with g_a a column slice ({row['b_dense_ms']:.5f} dense) "
+           f"plain {row['b_plain_ms']:.5f} ms (device-only "
            f"{row['b_device_ms']} ms)" if timed else ""))
     return row
 
@@ -2866,19 +2936,22 @@ def main():
     T, B, A = FRAGMENT, NUM_ENVS, NUM_ACTIONS
     k1 = check_vtrace(T, B, timed=True)
     check_vtrace(500, 4096, timed=False)
+    check_vtrace(T, 37, timed=False)  # a ragged tile
     k2 = check_categorical(B, A, timed=True)
     check_categorical(4096, 18, timed=False)
     # K1 and K2 at the shapes the Anakin paths give them: SyntheticAtari
     # (T=16, B=4096; 6 actions) and CartPole (T=20, B=32; 2 actions).
     n_cp = CARTPOLE_ANAKIN_CONFIG["num_envs_per_worker"]
     t_cp = CARTPOLE_ANAKIN_CONFIG["rollout_fragment_length"]
-    check_vtrace(ANAKIN_FRAGMENT, ANAKIN_ENVS, timed=False)
+    check_vtrace(ANAKIN_FRAGMENT, ANAKIN_ENVS, timed=True)
     check_vtrace(t_cp, n_cp, timed=False)
+    # K1 at Sebulba's update (one 25-step fragment of 64 envs).
+    check_vtrace(SEB_FRAGMENT, SEB_ENVS, timed=True)
     check_categorical(ANAKIN_ENVS, NUM_ACTIONS, timed=False)
     check_categorical(n_cp, 2, timed=False)
     # K2 at the shape phase 7's PPO Atari path gives it (16 envs).
     check_categorical(PPO_ATARI_ENVS, NUM_ACTIONS, timed=True)
-    k1_bound = bound_ms(4 * (6 * T * B + B), 17 * T * B)
+    k1_bound = (k1["bound_ms"], k1["bound_by"])
     k2_bound = (k2["bound_ms"], k2["bound_by"])
     # K3 at the Sebulba shape (32 envs per group, SpriteAtari's K=128,
     # stack 4) in every mode, then at a larger shape.

@@ -53,6 +53,24 @@ tree. The legs (all by default):
   dist inputs and value on the card to the four numpy columns
   (`chip_smoke.k7_step_tail` where `DiagGaussian` has a step record,
   else `DiagGaussian`, the normals, K7 and four `.cpu()` copies).
+- `k1`: K1 at 50x32 (local mode), 16x4096 (Anakin) and 25x64 (Sebulba)
+  on the learner's batch-major views (`chip_smoke.vtrace_layout`:
+  discounts, rewards and values seen through the tree's `_time_major`),
+  held against the plain version: the V-trace section of an update
+  (`from_importance_weights` from those views to vs and pg on the card)
+  with its time per call, the device operations it enqueues and their
+  device time, K1's own device time in it; the call on dense inputs;
+  plain and bound.
+- `k9b`: K9b at 256x1 (SAC Pendulum's update) and 1x1: the actor step's
+  backward through the tail (`torch.autograd.grad` from the tail's
+  actions and logp to the actor's output, g_a a column slice of the
+  critics' [B, 3 + d] concat gradient and g_logp dense, as the actor
+  step hands them), held bit for bit against the plain backward on
+  dense copies: its time per call, device operations and their device
+  time, K9b's device time in it; the autograd function's backward body
+  alone (`SquashedGaussianTail.backward` on a context its forward
+  filled) with its device operations; the bare wrapper on dense
+  gradients; plain and bound.
 - `phase3`: phase 3 of `chip_smoke.py` (local-mode IMPALA): env steps/s.
 - `phase4`: phase 4 (the Sebulba trainer at k=1 and k=5): env steps/s
   and the actors' wall split (`apply_pct`, `select_pct`).
@@ -83,6 +101,8 @@ K2_SHAPES = ((32, 6), (16, 6))
 K9F_SHAPES = ((1, 1), (256, 1))
 K8_SHAPES = ((1, 6), (1, 2))
 K7_SHAPES = ((8, 1),)
+K1_SHAPES = ((50, 32), (16, 4096), (25, 64))
+K9B_SHAPES = ((256, 1), (1, 1))
 K8_EPS = 0.3
 
 
@@ -106,24 +126,6 @@ def k2k_window_tail(distributions, logits, u, k, host):
     return tail
 
 
-def device_work_per_call(fn, reps=100):
-    """(CUDA kernels and copies, their device milliseconds) that one
-    call of `fn` enqueues (profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if "CUDA" in str(getattr(e, "device_type", ""))
-              and e.self_device_time_total > 0]
-    return (sum(e.count for e in events) / reps,
-            sum(e.self_device_time_total for e in events) / 1e3 / reps)
-
-
 def load_chip_smoke():
     """This directory's `chip_smoke.py`, whatever tree is first on the
     path (a tree may hold a `chip_smoke.py` of its own)."""
@@ -135,8 +137,8 @@ def load_chip_smoke():
     return module
 
 
-LEGS = ("k3", "k2k", "k2", "k9f", "k8", "k7", "phase3", "phase4",
-        "phase8", "phase9", "phase10")
+LEGS = ("k3", "k2k", "k2", "k9f", "k8", "k7", "k1", "k9b", "phase3",
+        "phase4", "phase8", "phase9", "phase10")
 
 
 def leg_k3(cs, torch, distributions, ds):
@@ -192,7 +194,7 @@ def leg_k2k(cs, torch, distributions, ds):
         bare = lambda: distributions.sample_logp_k(  # noqa: E731
             logits, u, True, k)
         nbytes, ops = cs.categorical_k_bytes_ops(k, N, A)
-        tail_ops, tail_device_ms = device_work_per_call(tail)
+        tail_ops, tail_device_ms = cs.device_work_per_call(tail)
         out[k] = {
             "wire_output": wire,
             "device_ms": cs.device_ms(bare, "categorical_sample_k_kernel"),
@@ -264,7 +266,7 @@ def tail_row(cs, tail, kernel_symbol, bare, plain, bound, path=None):
     """The figures of one kernel's env-step tail and its bare wrapper
     (and of `path`, the wrapper as the tree's policy calls it, when that
     differs from the bare call)."""
-    ops, tail_device_ms = device_work_per_call(tail)
+    ops, tail_device_ms = cs.device_work_per_call(tail)
     extra = {} if path is None else {"path_ms": cs.time_call(path,
                                                              reps=2000)}
     return {
@@ -337,7 +339,7 @@ def leg_k9f(cs, torch, D, ds):
             if tail().shape != (B, d):
                 raise AssertionError("K9f's acting tail's actions")
             row["tail_ops"], row["tail_device_ms"] = \
-                device_work_per_call(tail)
+                cs.device_work_per_call(tail)
             row["tail_kernel_device_ms"] = cs.device_ms(
                 tail, "squashed_gaussian_sample_kernel")
             row["tail_host_ms"] = cs.host_ms(tail, reps=2000)
@@ -401,6 +403,96 @@ def leg_k7(cs, torch, D, ds):
             cs.bound_ms(*cs.gaussian_bytes_ops(B, d, record=record))[0],
             path),
             step_record=record)
+    return out
+
+
+def leg_k1(cs, torch, D, ds):
+    from ray_tpu_torch.rllib.agents.impala import vtrace
+    out = {}
+    for T, B in K1_SHAPES:
+        inputs = cs.vtrace_inputs(T, B, seed=T * B)
+        views = cs.vtrace_layout(inputs, T, "batch_major")
+        got = vtrace.from_importance_weights(**views)
+        want = vtrace._from_importance_weights_plain(
+            *inputs.values(), 1.0, 1.0, 1.0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.allclose(g, w, rtol=cs.VTRACE_TOL,
+                                  atol=cs.VTRACE_TOL):
+                raise AssertionError(f"K1 differs from plain at {T}x{B}")
+        section = lambda: vtrace.from_importance_weights(  # noqa: E731
+            **views)
+        ops, section_device_ms = cs.device_work_per_call(section)
+        out[f"{T}x{B}"] = {
+            "section_ms": cs.time_call(section, reps=2000),
+            "section_device_ops": ops,
+            "section_device_ms": section_device_ms,
+            "device_ms": cs.device_ms(section, "vtrace_kernel"),
+            "dense_ms": cs.time_call(
+                lambda: vtrace.from_importance_weights(**inputs),
+                reps=2000),
+            "plain_ms": cs.time_call(
+                lambda: vtrace._from_importance_weights_plain(
+                    *inputs.values(), 1.0, 1.0, 1.0), reps=100, warmup=3),
+            "bound_ms": cs.bound_ms(*cs.vtrace_bytes_ops(T, B))[0],
+        }
+    return out
+
+
+class _TailContext:
+    """What `SquashedGaussianTail.forward` uses of autograd's context."""
+
+    def set_materialize_grads(self, value):
+        pass
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+
+def leg_k9b(cs, torch, D, ds):
+    out = {}
+    low, high = -2.0, 2.0  # Pendulum's action bounds
+    for B, d in K9B_SHAPES:
+        x, z = cs.squashed_inputs(B, d, seed=B * d + 10, margin=1e-3)
+        g = torch.Generator(device="cuda").manual_seed(B + d)
+        g_a = torch.randn(B, 3 + d, generator=g, device="cuda")[:, 3:]
+        g_logp = torch.randn(B, generator=g, device="cuda")
+        dense = g_a.contiguous()
+        want = D._squashed_gaussian_backward_plain(x, z, dense, g_logp, low,
+                                                   high, True)
+        xg = x.clone().requires_grad_(True)
+        actions, logp = D.squashed_gaussian_sample_logp(xg, z, low, high)
+        backward = lambda: torch.autograd.grad(  # noqa: E731
+            (actions, logp), [xg], (g_a, g_logp), retain_graph=True)
+        (got,) = backward()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K9b differs from plain at {B}x{d}")
+        ops, backward_device_ms = cs.device_work_per_call(backward)
+        # The autograd function's backward body alone, as the engine calls
+        # it (without the engine), on a context its forward filled.
+        ctx = _TailContext()
+        D.SquashedGaussianTail.forward(ctx, x, z, D.SquashedTail(low, high, d),
+                                       True, None)
+        body = lambda: D.SquashedGaussianTail.backward(  # noqa: E731
+            ctx, g_a, g_logp)
+        body_ops, _ = cs.device_work_per_call(body)
+        out[f"{B}x{d}"] = {
+            "body_ms": cs.time_call(body, reps=2000),
+            "body_device_ops": body_ops,
+            "backward_ms": cs.time_call(backward, reps=2000),
+            "backward_device_ops": ops,
+            "backward_device_ms": backward_device_ms,
+            "device_ms": cs.device_ms(backward,
+                                      "squashed_gaussian_backward_kernel"),
+            "bare_ms": cs.time_call(
+                lambda: D._squashed_gaussian_backward_cuda(
+                    x, z, dense, g_logp, low, high, True), reps=2000),
+            "plain_ms": cs.time_call(
+                lambda: D._squashed_gaussian_backward_plain(
+                    x, z, dense, g_logp, low, high, True), reps=500),
+            "bound_ms": cs.bound_ms(*cs.squashed_backward_bytes_ops(B, d))[0],
+        }
     return out
 
 

@@ -18,7 +18,11 @@
 // d log s passed in by the wrapper. logp is taken from the noise, as JAX
 // takes it, not from an unsquashed action. The backward (K9b) takes the
 // upstream gradients g_a [B, d] and g_logp [B] (either may be null, read
-// as zeros) and writes g_x [B, 2d]:
+// as zeros) where autograd leaves them, each with its strides in
+// elements: g_a arrives as a column slice of the critic's concat gradient
+// (row stride obs_dim + d) or as the expand of a sum (strides 0), g_logp
+// as the expand of a sum (stride 0); neither is copied first. It writes
+// g_x [B, 2d]:
 //
 //   g_pre_j  = g_a_j * s * (1 - t_j^2) + g_logp * 2 t_j
 //   g_mean_j = g_pre_j
@@ -120,7 +124,8 @@ __global__ void squashed_gaussian_sample_kernel(
 
 __global__ void squashed_gaussian_backward_kernel(
     const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ g_a, const float* __restrict__ g_logp,
+    const float* __restrict__ g_a, long long g_a_row, long long g_a_col,
+    const float* __restrict__ g_logp, long long g_logp_stride,
     float* __restrict__ g_x, int B, int d, int explore, float s) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -134,8 +139,8 @@ __global__ void squashed_gaussian_backward_kernel(
   const float zj = explore ? z[i] : 0.0f;
   const float pre = explore ? __fadd_rn(mean, __fmul_rn(std, zj)) : mean;
   const float t = tanhf(pre);
-  const float ga = g_a != nullptr ? g_a[i] : 0.0f;
-  const float gl = g_logp != nullptr ? g_logp[row] : 0.0f;
+  const float ga = g_a != nullptr ? g_a[row * g_a_row + j * g_a_col] : 0.0f;
+  const float gl = g_logp != nullptr ? g_logp[row * g_logp_stride] : 0.0f;
   const float g_pre =
       __fadd_rn(__fmul_rn(__fmul_rn(ga, s), __fsub_rn(1.0f, __fmul_rn(t, t))),
                 __fmul_rn(__fmul_rn(gl, 2.0f), t));
@@ -164,18 +169,20 @@ extern "C" int squashed_gaussian_sample(const float* x, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int squashed_gaussian_backward(const float* x, const float* z,
-                                          const float* g_a,
-                                          const float* g_logp, float* g_x,
-                                          int B, int d, int explore, float s,
-                                          void* stream) {
+// g_a [B, d] with its (row, column) strides and g_logp [B] with its stride,
+// in elements; a stride may be 0 (an expand).
+extern "C" int squashed_gaussian_backward(
+    const float* x, const float* z, const float* g_a, long long g_a_row,
+    long long g_a_col, const float* g_logp, long long g_logp_stride,
+    float* g_x, int B, int d, int explore, float s, void* stream) {
   if (B <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const int64_t n = static_cast<int64_t>(B) * d;
   const int blocks =
       static_cast<int>((n + kBackwardThreads - 1) / kBackwardThreads);
   squashed_gaussian_backward_kernel<<<blocks, kBackwardThreads, 0,
                                       static_cast<cudaStream_t>(stream)>>>(
-      x, z, g_a, g_logp, g_x, B, d, explore, s);
+      x, z, g_a, g_a_row, g_a_col, g_logp, g_logp_stride, g_x, B, d, explore,
+      s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -84,10 +84,13 @@ SQUASHED_GAUSSIAN_KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+# K9b reads the upstream gradients strided as autograd hands them over:
+# g_a with its (row, column) strides, g_logp with its stride.
 SQUASHED_GAUSSIAN_BACKWARD_KERNEL = CudaKernel(
     "squashed_gaussian_backward", "squashed_gaussian.cu",
     "squashed_gaussian_backward",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_void_p])
 
@@ -680,29 +683,50 @@ def _squashed_forward(x: torch.Tensor, z: Optional[torch.Tensor],
     return actions, logp
 
 
+def _squashed_backward_launch(x: torch.Tensor, z: Optional[torch.Tensor],
+                              g_a: Optional[torch.Tensor],
+                              g_logp: Optional[torch.Tensor], B: int, d: int,
+                              index: int, s: float, explore: bool
+                              ) -> torch.Tensor:
+    """Launch K9b on x [B, 2d] and z [B, d] already checked (by K9f's
+    launch, or by `_squashed_gaussian_backward_cuda`) on CUDA device
+    `index`, and the upstream gradients g_a [B, d] and g_logp [B], each
+    f32 on that device or None, read in place with their strides (a
+    column slice, an expand). Allocates g_x."""
+    if g_a is not None and (g_a.shape != (B, d) or g_a.dtype != torch.float32
+                            or g_a.get_device() != index):
+        raise ValueError(f"squashed_gaussian backward takes float32 "
+                         f"gradients of shape {(B, d)} on the inputs' "
+                         f"device, got g_a {tuple(g_a.shape)} {g_a.dtype} "
+                         f"on {g_a.device}")
+    if g_logp is not None and (g_logp.shape != (B,)
+                               or g_logp.dtype != torch.float32
+                               or g_logp.get_device() != index):
+        raise ValueError(f"squashed_gaussian backward takes float32 "
+                         f"gradients of shape {(B,)} on the inputs' device, "
+                         f"got g_logp {tuple(g_logp.shape)} {g_logp.dtype} "
+                         f"on {g_logp.device}")
+    g_x = torch.empty((B, 2 * d), dtype=torch.float32, device=x.device)
+    ga_row, ga_col = g_a.stride() if g_a is not None else (0, 0)
+    SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launch(
+        x.data_ptr(), z.data_ptr() if explore else None,
+        g_a.data_ptr() if g_a is not None else None, ga_row, ga_col,
+        g_logp.data_ptr() if g_logp is not None else None,
+        g_logp.stride(0) if g_logp is not None else 0, g_x.data_ptr(), B,
+        d, 1 if explore else 0, s, device_stream_handle(index))
+    return g_x
+
+
 def _squashed_gaussian_backward_cuda(
         x: torch.Tensor, z: Optional[torch.Tensor],
         g_a: Optional[torch.Tensor], g_logp: Optional[torch.Tensor],
         low: float, high: float, explore: bool) -> torch.Tensor:
     """Launch K9b: x [B, 2d], z [B, d] (when exploring), g_a [B, d] and
-    g_logp [B] (each f32 and contiguous, or None). Allocates g_x."""
+    g_logp [B] (each f32 of any strides, or None). Allocates g_x."""
     B, d = _check_squashed_inputs(x, z, explore)
-    index = x.get_device()
-    for g, shape in ((g_a, (B, d)), (g_logp, (B,))):
-        if g is not None and (g.shape != shape or g.dtype != torch.float32
-                              or g.get_device() != index
-                              or not g.is_contiguous()):
-            raise ValueError(f"squashed_gaussian backward takes contiguous "
-                             f"float32 gradients of shape {shape} on the "
-                             "inputs' device")
-    g_x = torch.empty_like(x)
-    SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launch(
-        x.data_ptr(), z.data_ptr() if explore else None,
-        g_a.data_ptr() if g_a is not None else None,
-        g_logp.data_ptr() if g_logp is not None else None, g_x.data_ptr(),
-        B, d, 1 if explore else 0, (high - low) / 2.0, device_stream_handle(
-            index))
-    return g_x
+    return _squashed_backward_launch(x, z, g_a, g_logp, B, d,
+                                     x.get_device(), (high - low) / 2.0,
+                                     explore)
 
 
 class SquashedGaussianTail(torch.autograd.Function):
@@ -710,30 +734,35 @@ class SquashedGaussianTail(torch.autograd.Function):
     gradient to x. On CUDA tensors the forward launches K9f and the
     backward K9b (or raises); on CPU tensors they are the two plain
     functions. z, the tail's constants, explore and the host output get
-    no gradient."""
+    no gradient.
+
+    The forward keeps what the backward needs (B, d, the device, the
+    tail's s), so the backward checks only the upstream gradients, which
+    autograd hands over as views (a column slice of the critic's concat
+    gradient, the expand of a sum) and K9b reads in place."""
 
     @staticmethod
     def forward(ctx, x, z, tail, explore, host):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, z)
-        ctx.args = (tail.low, tail.high, explore)
-        return _squashed_forward(x, z, tail, explore, host)
+        out = _squashed_forward(x, z, tail, explore, host)
+        ctx.tail, ctx.explore = tail, explore
+        ctx.dims = (x.shape[0], x.shape[1] // 2, x.get_device())
+        return out
 
     @staticmethod
     def backward(ctx, g_a, g_logp):
         if g_a is None and g_logp is None:
             return None, None, None, None, None
         x, z = ctx.saved_tensors
-        # Autograd hands over views (a column slice from the critic's
-        # concat, an expand from a mean); the kernel takes dense rows.
-        g_a = None if g_a is None else g_a.contiguous()
-        g_logp = None if g_logp is None else g_logp.contiguous()
-        if x.is_cuda:
-            g_x = _squashed_gaussian_backward_cuda(x, z, g_a, g_logp,
-                                                   *ctx.args)
+        B, d, index = ctx.dims
+        tail = ctx.tail
+        if index >= 0:
+            g_x = _squashed_backward_launch(x, z, g_a, g_logp, B, d, index,
+                                            tail.s, ctx.explore)
         else:
-            g_x = _squashed_gaussian_backward_plain(x, z, g_a, g_logp,
-                                                    *ctx.args)
+            g_x = _squashed_gaussian_backward_plain(
+                x, z, g_a, g_logp, tail.low, tail.high, ctx.explore)
         return g_x, None, None, None, None
 
 

@@ -80,8 +80,11 @@ def test_vtrace_kernel_rejects_what_it_cannot_take(cuda):
     bad = dict(inputs, rewards=inputs["rewards"].double())
     with pytest.raises(ValueError, match="float32"):
         vtrace._from_importance_weights_cuda(*bad.values(), *args)
-    bad = dict(inputs, values=torch.empty(4, 6, device=cuda).t())
-    with pytest.raises(ValueError, match="contiguous"):
+    bad = dict(inputs, values=torch.empty(6, 5, device=cuda))
+    with pytest.raises(ValueError, match=r"values is \(6, 5\)"):
+        vtrace._from_importance_weights_cuda(*bad.values(), *args)
+    bad = dict(inputs, rewards=torch.empty(6, 8, device=cuda)[:, ::2])
+    with pytest.raises(ValueError, match="rewards has strides"):
         vtrace._from_importance_weights_cuda(*bad.values(), *args)
     bad = dict(inputs, bootstrap_value=inputs["bootstrap_value"][:3])
     with pytest.raises(ValueError, match="bootstrap_value"):
@@ -89,6 +92,91 @@ def test_vtrace_kernel_rejects_what_it_cannot_take(cuda):
     bad = dict(inputs, discounts=inputs["discounts"].cpu())
     with pytest.raises(ValueError, match="discounts is on"):
         vtrace._from_importance_weights_cuda(*bad.values(), *args)
+
+
+def _vtrace_views(T, B, device, layout, seed=0):
+    """K1's inputs in one layout: "time_major" (contiguous [T, B]),
+    "batch_major" (the learner's [B * T] columns seen through
+    `_time_major`: strides (1, T); log_rhos stays [T, B] contiguous, as
+    `from_logits` makes it) or "offset" (the same views, each starting 1
+    to 3 floats past a 16-byte boundary, the bootstrap every other
+    element of a [2B] tensor)."""
+    from ray_tpu_torch.rllib.agents.impala.vtrace_policy import _time_major
+    dense = _vtrace_inputs(T, B, device, seed=seed)
+    if layout == "time_major":
+        return dense
+    views = {}
+    for shift, k in enumerate(("discounts", "rewards", "values")):
+        flat = dense[k].t().contiguous().reshape(-1)
+        if layout == "offset":
+            room = torch.zeros(T * B + 4, device=device)
+            room[shift + 1:shift + 1 + T * B] = flat
+            flat = room[shift + 1:shift + 1 + T * B]
+        views[k] = _time_major(flat, T)
+    if layout == "offset":
+        room = torch.zeros(T * B + 4, device=device)
+        room[3:3 + T * B] = dense["log_rhos"].reshape(-1)
+        views["log_rhos"] = room[3:3 + T * B].view(T, B)
+        boot = torch.zeros(2 * B, device=device)
+        boot[::2] = dense["bootstrap_value"]
+        views["bootstrap_value"] = boot[::2]
+    return dict(dense, **views)
+
+
+def _device_ops(fn, reps=20):
+    """CUDA kernels and copies that one call of `fn` enqueues
+    (torch.profiler, after a warm-up call), to the nearest whole number:
+    for backward calls, which run on autograd's device thread, the
+    profiler has recorded 19 kernels in 20 calls on an H100."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))
+              and e.self_device_time_total > 0]
+    return round(sum(e.count for e in events) / reps)
+
+
+# The learner's 50 x 32, Anakin's 16 x 4096, CartPole Anakin's 20 x 32,
+# the long 500 x 4096 (double-buffered chunks) and a ragged B of 37.
+VTRACE_LAYOUT_SHAPES = [(50, 32), (16, 4096), (20, 32), (500, 4096),
+                        (50, 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B", VTRACE_LAYOUT_SHAPES)
+@pytest.mark.parametrize("layout", ["time_major", "batch_major", "offset"])
+def test_vtrace_kernel_reads_strided_views_in_place(cuda, T, B, layout):
+    """K1 on each layout against the plain version on dense copies
+    (1e-5 + 1e-5 |plain|), one launch, the inputs untouched."""
+    inputs = _vtrace_views(T, B, cuda, layout, seed=T + B)
+    saved = {k: v.clone() for k, v in inputs.items()}
+    before = vtrace.VTRACE_KERNEL.launches
+    got = vtrace.from_importance_weights(**inputs)
+    torch.cuda.synchronize()
+    assert vtrace.VTRACE_KERNEL.launches == before + 1
+    want = vtrace._from_importance_weights_plain(
+        *(v.contiguous() for v in inputs.values()), 1.0, 1.0, 1.0)
+    assert got.vs.is_contiguous() and got.pg_advantages.is_contiguous()
+    torch.testing.assert_close(got.vs, want.vs, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(got.pg_advantages, want.pg_advantages,
+                               rtol=TOL, atol=TOL)
+    for k, v in inputs.items():
+        assert torch.equal(v, saved[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B", [(50, 32), (16, 4096)])
+def test_vtrace_kernel_enqueues_one_device_operation(cuda, T, B):
+    """From the learner's batch-major views to vs and pg on the card: K1
+    alone, no transposing copy before it."""
+    inputs = _vtrace_views(T, B, cuda, "batch_major")
+    assert _device_ops(lambda: vtrace.from_importance_weights(**inputs)) \
+        == 1
 
 
 @pytest.mark.gpu
@@ -783,6 +871,101 @@ def test_squashed_gaussian_backward_kernel_matches_plain(cuda, B, d, grads):
     torch.testing.assert_close(xg.grad, want, rtol=TOL, atol=TOL)
 
 
+def _strided_gradients(B, d, device, g_a_layout, g_logp_layout, obs_dim=3):
+    """Upstream gradients as autograd hands them to the tail: g_a a
+    column slice of a [B, obs_dim + d] concat gradient ("slice"), the
+    expand of a sum ("expand", strides 0), dense, or None; g_logp the
+    expand of a sum, every other element of a [2B] tensor ("strided"),
+    dense, or None."""
+    gen = torch.Generator(device=device).manual_seed(B * d + 11)
+    g_a = {"slice": lambda: torch.randn(B, obs_dim + d, generator=gen,
+                                        device=device)[:, obs_dim:],
+           "expand": lambda: torch.randn(1, 1, generator=gen,
+                                         device=device).expand(B, d),
+           "dense": lambda: torch.randn(B, d, generator=gen, device=device),
+           "none": lambda: None}[g_a_layout]()
+    g_logp = {"expand": lambda: torch.randn(1, generator=gen,
+                                            device=device).expand(B),
+              "strided": lambda: torch.randn(2 * B, generator=gen,
+                                             device=device)[::2],
+              "dense": lambda: torch.randn(B, generator=gen, device=device),
+              "none": lambda: None}[g_logp_layout]()
+    return g_a, g_logp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d", [(256, 1), (1, 1), (256, 6), (5, 40)])
+@pytest.mark.parametrize("g_a_layout,g_logp_layout", [
+    ("slice", "expand"), ("slice", "dense"), ("expand", "strided"),
+    ("slice", "none"), ("none", "expand"), ("dense", "dense")])
+def test_squashed_gaussian_backward_reads_strided_gradients(
+        cuda, B, d, g_a_layout, g_logp_layout):
+    """K9b on autograd's views equals the plain backward on dense copies
+    bit for bit, directly and through the autograd function; through it
+    the backward enqueues K9b alone (no copy of a gradient)."""
+    x, z = _squashed_inputs(B, d, cuda, seed=B * d + 2, margin=1e-3)
+    g_a, g_logp = _strided_gradients(B, d, cuda, g_a_layout, g_logp_layout)
+    dense = [None if g is None else g.contiguous() for g in (g_a, g_logp)]
+    want = distributions._squashed_gaussian_backward_plain(
+        x, z, *dense, -2.0, 2.0, True)
+    got = distributions._squashed_gaussian_backward_cuda(
+        x, z, g_a, g_logp, -2.0, 2.0, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    xg = x.clone().requires_grad_(True)
+    actions, logp = distributions.squashed_gaussian_sample_logp(
+        xg, z, -2.0, 2.0)
+    outs = [o for o, g in zip((actions, logp), (g_a, g_logp))
+            if g is not None]
+    grads = [g for g in (g_a, g_logp) if g is not None]
+    before = distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches
+    (g_x,) = torch.autograd.grad(outs, [xg], grads, retain_graph=True)
+    assert distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches \
+        == before + 1
+    assert torch.equal(g_x, want)
+    assert _device_ops(lambda: torch.autograd.grad(
+        outs, [xg], grads, retain_graph=True)) == 1
+
+
+@pytest.mark.gpu
+def test_sac_actor_step_tail_backward_enqueues_one_device_operation(
+        cuda, monkeypatch):
+    """The actor step hands the tail's backward g_a as a column slice of
+    the critics' concat gradient (row stride obs_dim + d) and g_logp
+    dense; K9b reads them as they are, once per step, and the tail's
+    backward on those gradients enqueues one device operation."""
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.agents.sac import SACPolicy
+    from ray_tpu_torch.rllib.env.spaces import Box
+    policy = SACPolicy(Box(-8.0, 8.0, (3,)), Box(-2.0, 2.0, (1,)),
+                       {"device": "cuda", "seed": 0})
+    seen = []
+    launch = distributions._squashed_backward_launch
+
+    def recording(x, z, g_a, g_logp, *rest):
+        seen.append((g_a, g_logp))
+        return launch(x, z, g_a, g_logp, *rest)
+
+    monkeypatch.setattr(distributions, "_squashed_backward_launch",
+                        recording)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    obs = torch.randn(256, 3, generator=gen, device=cuda)
+    z = torch.randn(256, 1, generator=gen, device=cuda)
+    before = distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches
+    policy.actor_step({sb.OBS: obs}, z)
+    torch.cuda.synchronize()
+    assert distributions.SQUASHED_GAUSSIAN_BACKWARD_KERNEL.launches \
+        == before + 1
+    (g_a, g_logp), = seen
+    assert g_a.shape == (256, 1) and g_a.stride() == (4, 1)
+    assert g_logp.shape == (256,)
+    x = policy.actor(obs).detach().requires_grad_(True)
+    actions, logp = distributions.squashed_gaussian_sample_logp(
+        x, z, tail=policy._tail_constants)
+    assert _device_ops(lambda: torch.autograd.grad(
+        (actions, logp), [x], (g_a, g_logp), retain_graph=True)) == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,d", [(1, 1), (256, 1), (4096, 17)])
 @pytest.mark.parametrize("explore", [True, False])
@@ -847,7 +1030,10 @@ def test_squashed_gaussian_kernel_rejects_what_it_cannot_take(cuda):
             x, z, torch.zeros(4, 2, device=cuda), None, -1.0, 1.0, True)
     with pytest.raises(ValueError, match="gradients"):
         distributions._squashed_gaussian_backward_cuda(
-            x, z, None, torch.zeros(4, 3, device=cuda).t()[0], -1.0, 1.0,
+            x, z, None, torch.zeros(3, device=cuda), -1.0, 1.0, True)
+    with pytest.raises(ValueError, match="gradients"):
+        distributions._squashed_gaussian_backward_cuda(
+            x, z, None, torch.zeros(4, device=cuda).double(), -1.0, 1.0,
             True)
 
 
