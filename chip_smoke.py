@@ -58,7 +58,9 @@ falls back to the CPU):
    host sync fails it); the episode accounting at the 1000-step
    boundary; one call profiled. Then one update of a 1,024-row slice of
    the card's own batch on the card against the CPU, and a short
-   CartPole Anakin run (32 envs x 20 steps x 10 updates per call).
+   CartPole Anakin run (32 envs x 20 steps x 10 updates per call) whose
+   env steps must all launch K5b through the optimizer's bound step
+   (`DeviceCartPole.bind`), none through the generic entry point.
 
 6. The data-parallel trainer: `parallel.distributed.launch` starts a
    world of 2 ranks (NCCL with a card per rank; gloo, staged through
@@ -66,8 +68,11 @@ falls back to the CPU):
    `IMPALATrainer` in local mode at phase 3's configuration with
    `num_gpus_for_learner: 2`: 5 iterations with `allreduce_codec: "q8"`,
    then 3 with "fp32". The launch counts (set to 0 after setup) must be
-   one K6a and one K6b per q8 update per rank, V-trace once per update
-   and the sampling tail once per env step, both ranks'
+   one K6a and one K6b (its leaf-table form, which writes the sum in
+   `parameters()` order; the packed-order form not at all) per q8
+   update per rank, V-trace once per update and the sampling tail once
+   per env step, the exchange's decode section one device operation
+   (no unpacking gather), both ranks'
    weights must be equal bit for bit after every iteration, the
    residuals finite and nonzero, the q8 payload >= 3.5x smaller
    than fp32, and each rank's `global_timestep` the world's rows (its
@@ -119,11 +124,15 @@ falls back to the CPU):
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
-its thresholds) at the Anakin shapes and at N=37, and the q8 exchange's
-encode (K6a) and gather-sum (K6b) bit for bit against theirs: K6a at
-the Nature CNN's packed gradient, the CartPole FC net's and 64M
-elements, on live blocks and the codec's edge cases; K6b at D=2 and 8,
-with and without the division by D; K7, the DiagGaussian
+its thresholds) at the Anakin shapes and at N=37 (K5b also through the
+bound step over 6 steps at 32, 37 and 4096, and timed through it as the
+Anakin optimizer calls it, with the episode ends per step), and the q8
+exchange's encode (K6a) and gather-sum (K6b) bit for bit against
+theirs: K6a at the Nature CNN's packed gradient, the CartPole FC net's
+and 64M elements, on live blocks and the codec's edge cases; K6b at D=2
+and 8, with and without the division by D, in packed order and with
+the Nature CNN's leaf table (timed at D=2; also against the packed sum
+indexed by the plan's `unpack_index`); K7, the DiagGaussian
 sampling tail, at Pendulum's shape (8 x 1, timed), 256 x 6 and 4096 x
 17, exploring and not (1e-6 + 1e-6 relative; the mean itself when not;
 the step record's columns bit for bit); and K8, the epsilon-greedy
@@ -1247,10 +1256,49 @@ def device_env_bytes(kind, n, ends):
     return n * per_env + ends * 2 * 12
 
 
+BOUND_STEPS = 6  # K5b's bound step: steps held against plain
+BOUND_SLOTS = 20  # and slots cycled when timed (CartPole Anakin's T)
+
+
+def cartpole_bound_timing(n):
+    """K5b through the bound step as the Anakin optimizer calls it (one
+    slot after another of env-major buffers, the counter advancing):
+    per call (CUDA events over back-to-back calls), device-only time, the
+    device operations of one call, and the episode ends per timed
+    step."""
+    from ray_tpu_torch.rllib.env import device_env as de
+    from ray_tpu_torch.rllib.env import device_env_check as dec
+    env, state, ep, actions, _, slots = dec.bound_case(
+        n, BOUND_SLOTS, "cuda", seed=n)
+    step = env.bind(state, *slots, seed=dec.SEED, episodes=ep)
+    acts = list(actions.unbind(0))
+    calls = [0]
+
+    def bound():
+        i = calls[0]
+        calls[0] = i + 1
+        t = i % BOUND_SLOTS
+        step(acts[t], t, dec.COUNTER + i)
+
+    generic = de.CARTPOLE_KERNEL.launches
+    ends = int(ep.done_cnt.sum())
+    row = {"ms": time_call(bound, reps=ENV_TIMED_REPS,
+                           warmup=ENV_TIMED_WARMUP)}
+    row["ends_per_step"] = (int(ep.done_cnt.sum()) - ends) / calls[0]
+    row["device_ms"] = device_ms(bound, "cartpole_kernel")
+    row["device_ops"] = device_work_per_call(bound)[0]
+    if de.CARTPOLE_KERNEL.launches != generic:
+        raise AssertionError("the bound step launched the generic entry "
+                             "point")
+    return row
+
+
 def check_device_env(kind, n, timed):
     """K5a or K5b against its plain version (`device_env_check`), reset
-    and step; timed, the step repeated on its own output state, with the
-    bytes of the episodes those timed steps ended."""
+    and step (K5b also through the bound step); timed, the step repeated
+    on its own output state (K5b: through the bound step, and through
+    `DeviceEnv.step` as `generic_ms`), with the bytes of the episodes
+    those timed steps ended."""
     import torch
     from ray_tpu_torch.rllib.env import device_env as de
     from ray_tpu_torch.rllib.env import device_env_check as dec
@@ -1258,6 +1306,8 @@ def check_device_env(kind, n, timed):
     env = de.DeviceSyntheticAtari() if atari else de.DeviceCartPole()
     res = [dec.compare_with_plain(env, n, reset, seed=n)
            for reset in (True, False)]
+    if not atari:
+        res.append(dec.compare_bound_with_plain(n, BOUND_STEPS, seed=n))
     max_ulps = max(r["max_ulps"] for r in res)
     max_err = max(r["max_abs_err"] for r in res)
     row = {"kind": kind, "n": n, "max_abs_err": max_err,
@@ -1274,22 +1324,33 @@ def check_device_env(kind, n, timed):
             env._launch(*args)
 
         ends = int(ep.done_cnt.sum())
-        row["ms"] = time_call(kernel, reps=ENV_TIMED_REPS,
-                              warmup=ENV_TIMED_WARMUP)
+        generic_ms = time_call(kernel, reps=ENV_TIMED_REPS,
+                               warmup=ENV_TIMED_WARMUP)
         row["ends_per_step"] = (int(ep.done_cnt.sum()) - ends) / (
             ENV_TIMED_REPS + ENV_TIMED_WARMUP)
-        row["bytes"] = device_env_bytes(kind, n, row["ends_per_step"])
         row["plain_ms"] = time_call(lambda: dec.plain_launch(env, *args),
                                     reps=10 if atari else 200, warmup=2)
-        row["device_ms"] = device_ms(
-            kernel, "synthetic_atari_kernel" if atari else "cartpole_kernel")
+        if atari:
+            row["ms"] = generic_ms
+            row["device_ms"] = device_ms(kernel, "synthetic_atari_kernel")
+        else:
+            row["generic_ms"] = generic_ms
+            row["generic_device_ms"] = device_ms(kernel, "cartpole_kernel")
+            row.update(cartpole_bound_timing(n))
+        row["bytes"] = device_env_bytes(kind, n, row["ends_per_step"])
     log(f"  {kind} n={n}: reset and step equal to plain"
         + (f" (state within {max_ulps} ulp, max_abs_err {max_err:.3e})"
            if not atari else " byte for byte")
+        + ("" if atari else f", {BOUND_STEPS} bound steps too")
         + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
            f"(kernel device-only {row['device_ms']} ms; "
            f"{row['ends_per_step']:.4f} episode ends per timed step, "
-           f"{row['bytes']:.1f} B per step)" if timed else ""))
+           f"{row['bytes']:.1f} B per step)" if timed else "")
+        + (f"; through the bound step: {row['device_ops']:.2f} device "
+           f"operations per call; through DeviceEnv.step "
+           f"{row['generic_ms']:.5f} ms, device-only "
+           f"{row['generic_device_ms']} ms" if timed and not atari
+           else ""))
     return row
 
 
@@ -1678,21 +1739,24 @@ def sync_checked_step(opt):
 
 
 def run_anakin_calls(config, calls, env_kernel, sync_call=None,
-                     profile_last=False):
+                     profile_last=False, absent=()):
     """`calls` trainer iterations (one optimizer call each) of the Anakin
     trainer: every launch count set to 0 before each call and held after
-    it to one env kernel and one sampling kernel per env step and one
-    V-trace per update. Returns (trainer, per-call rows, launch totals,
-    profile of the last call or None)."""
+    it to one env kernel and one sampling kernel per env step, one
+    V-trace per update and no launch of the `absent` kernels. Returns
+    (trainer, per-call rows, launch totals, profile of the last call or
+    None)."""
     import torch
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
     kernels = {env_kernel.name: env_kernel,
                "categorical": distributions.CATEGORICAL_KERNEL,
                "vtrace": vtrace.VTRACE_KERNEL}
+    kernels.update({k.name: k for k in absent})
     T, M = config["rollout_fragment_length"], \
         config["anakin_updates_per_call"]
     want = {env_kernel.name: T * M, "categorical": T * M, "vtrace": M}
+    want.update({k.name: 0 for k in absent})
     totals = dict.fromkeys(kernels, 0)
     t0 = time.perf_counter()
     trainer = IMPALATrainer(config=dict(config))
@@ -1836,10 +1900,12 @@ def check_anakin_update_against_cpu(trainer, rows=1024):
 
 
 def run_anakin_cartpole():
-    """The CartPole Anakin config on the card, so K5b runs on a path."""
+    """The CartPole Anakin config on the card, so K5b runs on a path:
+    every env step through the optimizer's bound step."""
     from ray_tpu_torch.rllib.env import device_env as de
     trainer, rows, launches, _ = run_anakin_calls(
-        CARTPOLE_ANAKIN_CONFIG, CARTPOLE_CALLS, de.CARTPOLE_KERNEL)
+        CARTPOLE_ANAKIN_CONFIG, CARTPOLE_CALLS, de.CARTPOLE_BOUND_KERNEL,
+        absent=(de.CARTPOLE_KERNEL,))
     trainer.stop()
     steady = rows[1:]
     summary = {"calls": len(rows),
@@ -1904,6 +1970,43 @@ def check_q8_gather_sum(world, nb, mean, timed):
     return row
 
 
+def check_q8_gather_sum_unpack(world, mean, timed):
+    """K6b with the Nature CNN's leaf table against its plain version and
+    against the packed-order K6b indexed by the plan (bit for bit);
+    timed, per call through `Q8Decode` as the exchange calls it, device
+    time (warm and with the L2 evicted) and the device operations of one
+    call."""
+    import numpy as np
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.parallel import collectives, q8_check
+    from ray_tpu_torch.rllib.env.spaces import Box
+    model = catalog.get_model(Box(0, 255, (84, 84, 4), np.uint8),
+                              NUM_ACTIONS, {})
+    decode, gathered, err = q8_check.check_gather_sum_unpack(
+        model, world, mean, seed=world * 7)
+    row = {"D": world, "mean": mean, "max_abs_err": err, "nb": decode.nb,
+           "numel": decode.numel, "tiles": decode.num_tiles}
+    if timed:
+        call = lambda: decode(gathered, mean)  # noqa: E731
+        row["ms"] = time_call(call, reps=2000)
+        row["plain_ms"] = time_call(
+            lambda: collectives._q8_gather_sum_unpack_plain(
+                gathered, decode.nb, mean, decode.table), reps=100)
+        row["device_ms"], row["device_ms_cold_l2"] = (device_ms(
+            call, "q8_gather_sum_unpack_kernel", cold=cold)
+            for cold in (False, True))
+        row["device_ops"] = device_work_per_call(call)[0]
+    log(f"  q8_gather_sum with the leaf table D={world} mean={mean} "
+        f"({decode.numel} elements, {decode.num_tiles} tiles): equal bit "
+        f"for bit to plain and to the packed sum indexed"
+        + (f", kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+           f"(kernel device-only {row['device_ms']} ms; "
+           f"{row['device_ms_cold_l2']} ms with L2 evicted; "
+           f"{row['device_ops']:.2f} device operations per call)"
+           if timed else ""))
+    return row
+
+
 # ---------------------------------------------------------------------
 # phase 6: the data-parallel trainer (each rank a spawned process)
 # ---------------------------------------------------------------------
@@ -1957,10 +2060,11 @@ def dp_rank(rank, backend):
     import torch
     from ray_tpu_torch.models import distributions
     from ray_tpu_torch.models.convert import flax_pack_plan
-    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.parallel import collectives, q8_check
     from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
     kernels = {"q8_encode_ef": collectives.Q8_ENCODE_KERNEL,
                "q8_gather_sum": collectives.Q8_GATHER_SUM_KERNEL,
+               "q8_gather_sum_unpack": collectives.Q8_GATHER_UNPACK_KERNEL,
                "vtrace": vtrace.VTRACE_KERNEL,
                "categorical": distributions.CATEGORICAL_KERNEL}
     local_envs = DP_CONFIG["num_envs_per_worker"] // DP_RANKS
@@ -2001,7 +2105,8 @@ def dp_rank(rank, backend):
         updates = learner.grad_timer.count
         launches = {name: k.launches for name, k in kernels.items()}
         q8_updates = updates if codec == "q8" else 0
-        want = {"q8_encode_ef": q8_updates, "q8_gather_sum": q8_updates,
+        want = {"q8_encode_ef": q8_updates, "q8_gather_sum": 0,
+                "q8_gather_sum_unpack": q8_updates,
                 "vtrace": updates, "categorical":
                 trainer.optimizer.num_steps_sampled // local_envs}
         if updates <= 0 or launches != want:
@@ -2037,6 +2142,18 @@ def dp_rank(rank, backend):
                     and bool((ef != 0).any())):
                 raise AssertionError("q8 residuals not finite and nonzero")
             arm["residual_abs_max"] = float(ef.abs().max())
+            # The decode section as the exchange runs it (the policy's
+            # Q8Decode on gathered images of this world's size): K6b
+            # alone, no unpacking gather.
+            gathered = q8_check.gathered_case(
+                DP_RANKS, policy._q8_decode.nb, seed=rank,
+                device=group.device)
+            arm["decode_device_ops"] = device_work_per_call(
+                lambda: policy._q8_decode(gathered, False))[0]
+            if round(arm["decode_device_ops"]) != 1:
+                raise AssertionError(
+                    f"q8 decode section: {arm['decode_device_ops']} device "
+                    "operations per call, want 1")
             sizes = flax_pack_plan(policy.model,
                                    collectives.Q8_BLOCK).leaf_sizes
             arm["exchange_probe_ms"] = {
@@ -2387,7 +2504,9 @@ def port_kernels():
             distributions.CATEGORICAL_K_KERNEL,
             device_sampler.OBS_APPLY_KERNEL,
             device_env.SYNTHETIC_ATARI_KERNEL, device_env.CARTPOLE_KERNEL,
+            device_env.CARTPOLE_BOUND_KERNEL,
             collectives.Q8_ENCODE_KERNEL, collectives.Q8_GATHER_SUM_KERNEL,
+            collectives.Q8_GATHER_UNPACK_KERNEL,
             distributions.DIAG_GAUSSIAN_KERNEL,
             eps_greedy.EPS_GREEDY_KERNEL,
             distributions.SQUASHED_GAUSSIAN_KERNEL,
@@ -2910,7 +3029,8 @@ def main():
         cuda_build.build_all([vtrace.VTRACE_KERNEL,
                               distributions.CATEGORICAL_KERNEL,
                               collectives.Q8_ENCODE_KERNEL,
-                              collectives.Q8_GATHER_SUM_KERNEL])
+                              collectives.Q8_GATHER_SUM_KERNEL,
+                              collectives.Q8_GATHER_UNPACK_KERNEL])
         log("phase 6 alone: IMPALATrainer, data-parallel learner")
         log(json.dumps({"launches": run_dp()}))
         return 0
@@ -3006,18 +3126,30 @@ def main():
     check_q8_encode(nb_nature, edge=True, timed=False)
     check_q8_encode(nb_cartpole, edge=True, timed=False)
     check_q8_encode(65536, edge=False, timed=False)
-    k6b = check_q8_gather_sum(DP_RANKS, nb_nature, False, timed=True)
+    # K6b in packed order (timed), then with the leaf table as the
+    # exchange runs it (timed at D=2; its row below).
+    k6b_packed = check_q8_gather_sum(DP_RANKS, nb_nature, False, timed=True)
     check_q8_gather_sum(DP_RANKS, nb_nature, True, timed=False)
     check_q8_gather_sum(8, nb_nature, False, timed=False)
     check_q8_gather_sum(8, nb_nature, True, timed=False)
+    k6b = check_q8_gather_sum_unpack(DP_RANKS, False, timed=True)
+    check_q8_gather_sum_unpack(DP_RANKS, True, timed=False)
+    check_q8_gather_sum_unpack(8, False, timed=False)
+    check_q8_gather_sum_unpack(8, True, timed=False)
     k6a_bound = bound_ms(q8_check.encode_bytes(nb_nature),
                          q8_check.encode_ops(nb_nature))
-    k6b_bound = bound_ms(q8_check.gather_sum_bytes(DP_RANKS, nb_nature),
-                         q8_check.gather_sum_ops(DP_RANKS, nb_nature,
-                                                 False))
+    k6b_bound = bound_ms(
+        q8_check.gather_sum_unpack_bytes(DP_RANKS, k6b["nb"], k6b["numel"]),
+        (3 * DP_RANKS) * k6b["numel"])
+    k6b_packed_bound = bound_ms(
+        q8_check.gather_sum_bytes(DP_RANKS, nb_nature),
+        q8_check.gather_sum_ops(DP_RANKS, nb_nature, False))
     log(f"  bound ms: q8_encode_ef {k6a_bound[0]:.6f} ({k6a_bound[1]}), "
-        f"q8_gather_sum D={DP_RANKS} {k6b_bound[0]:.6f} ({k6b_bound[1]}), "
-        f"nb {nb_nature} (Nature CNN), {nb_cartpole} (CartPole FC)")
+        f"q8_gather_sum D={DP_RANKS} with the leaf table "
+        f"{k6b_bound[0]:.6f} ({k6b_bound[1]}), in packed order "
+        f"{k6b_packed_bound[0]:.6f} (kernel {k6b_packed['ms']:.5f} ms, "
+        f"device-only {k6b_packed['device_ms']} ms), nb {nb_nature} "
+        f"(Nature CNN), {nb_cartpole} (CartPole FC)")
 
     # K7 at Pendulum's shape (8 envs, a 1-dim box; timed, with the step
     # record as the Box policy runs it), at 256 x 6 and at 4096 envs x a
@@ -3127,7 +3259,8 @@ def main():
         {"name": "cartpole_step", "route": "cuda",
          "source": "ray_tpu_torch/csrc/device_env.cu",
          "replaces": "ray_tpu/rllib/env/jax_env.py:109",
-         "launches": cartpole_launches["cartpole_step"],
+         "launches": cartpole_launches["cartpole_step_bound"]
+         + cartpole_launches["cartpole_step"],
          "max_abs_err": k5b["max_abs_err"],
          "ms": k5b["ms"], "plain_ms": k5b["plain_ms"],
          "bound_ms": k5b_bound[0], "bound_by": k5b_bound[1],
@@ -3143,7 +3276,8 @@ def main():
         {"name": "q8_gather_sum", "route": "cuda",
          "source": "ray_tpu_torch/csrc/q8.cu",
          "replaces": "ray_tpu/parallel/collectives.py:117",
-         "launches": dp_launches["q8_gather_sum"],
+         "launches": dp_launches["q8_gather_sum_unpack"]
+         + dp_launches["q8_gather_sum"],
          "max_abs_err": k6b["max_abs_err"],
          "ms": k6b["ms"], "plain_ms": k6b["plain_ms"],
          "bound_ms": k6b_bound[0], "bound_by": k6b_bound[1],

@@ -71,6 +71,25 @@ tree. The legs (all by default):
   alone (`SquashedGaussianTail.backward` on a context its forward
   filled) with its device operations; the bare wrapper on dense
   gradients; plain and bound.
+- `k5b`: K5b at N=32 (CartPole Anakin) and 4096: the env step as the
+  tree's `AnakinOptimizer` makes it, into one slot after another of
+  env-major [N, 20] buffers with the episode accumulator and the counter
+  advancing (the bound step `DeviceCartPole.bind` returns, where the
+  tree has one; else `DeviceEnv.step` with the slot's views), held
+  against the plain version over 6 steps: its time per call (CUDA
+  events over back-to-back calls), host time per call, the device
+  operations one call enqueues, K5b's device time, the episode ends per
+  timed step; `DeviceEnv.step` per call; plain and bound.
+- `k6b`: K6b at D=2 on the Nature CNN's packed gradient (nb 1,654): the
+  exchange's decode section as the tree's policy runs it, from the
+  gathered wire images to the world's gradient in `parameters()` order
+  (the leaf-table form, `Q8Decode`, where the tree has it; else the
+  packed-order K6b and the `[unpack_index]` gather), held bit for bit
+  against the packed sum indexed: its time per call, device operations
+  and their device time, K6b's device time warm and with the L2
+  evicted; plain and bound.
+- `anakin_cartpole`: phase 5's CartPole Anakin run (32 envs x 20 steps x
+  10 updates per call) for 6 calls: env steps/s of the last 5.
 - `phase3`: phase 3 of `chip_smoke.py` (local-mode IMPALA): env steps/s.
 - `phase4`: phase 4 (the Sebulba trainer at k=1 and k=5): env steps/s
   and the actors' wall split (`apply_pct`, `select_pct`).
@@ -104,6 +123,9 @@ K7_SHAPES = ((8, 1),)
 K1_SHAPES = ((50, 32), (16, 4096), (25, 64))
 K9B_SHAPES = ((256, 1), (1, 1))
 K8_EPS = 0.3
+K5B_SHAPES = (32, 4096)
+K5B_SLOTS = 20  # CartPole Anakin's fragment
+ANAKIN_CARTPOLE_CALLS = 6  # the first warms up
 
 
 def k2k_window_tail(distributions, logits, u, k, host):
@@ -137,8 +159,9 @@ def load_chip_smoke():
     return module
 
 
-LEGS = ("k3", "k2k", "k2", "k9f", "k8", "k7", "k1", "k9b", "phase3",
-        "phase4", "phase8", "phase9", "phase10")
+LEGS = ("k3", "k2k", "k2", "k9f", "k8", "k7", "k1", "k9b", "k5b", "k6b",
+        "anakin_cartpole", "phase3", "phase4", "phase8", "phase9",
+        "phase10")
 
 
 def leg_k3(cs, torch, distributions, ds):
@@ -496,6 +519,152 @@ def leg_k9b(cs, torch, D, ds):
     return out
 
 
+def k5b_path(de, dec, torch, n, seed):
+    """(env step as the tree's Anakin optimizer makes it, callable as
+    (actions, slot, counter); the episode accumulator; actions [T, n];
+    the buffers) for `n` envs of a `device_env_check` case."""
+    env = de.DeviceCartPole()
+    state, _, ep = dec.env_case(env, n, "cuda", seed)
+    actions = torch.randint(0, 2, (K5B_SLOTS, n), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(seed))
+    obs = torch.zeros(n, K5B_SLOTS + 1, 4, device="cuda")
+    rew = torch.zeros(n, K5B_SLOTS, device="cuda")
+    done = torch.zeros(n, K5B_SLOTS, dtype=torch.bool, device="cuda")
+    slots = ([obs[:, t + 1] for t in range(K5B_SLOTS)], rew.unbind(1),
+             done.unbind(1))
+    if hasattr(env, "bind"):
+        step = env.bind(state, *slots, seed=dec.SEED, episodes=ep)
+    else:
+        def step(a, t, counter):
+            env.step(state, a, dec.SEED, counter, obs_out=slots[0][t],
+                     reward_out=slots[1][t], done_out=slots[2][t],
+                     episodes=ep)
+    return env, state, step, ep, actions, (obs, rew, done), slots
+
+
+def leg_k5b(cs, torch, D, ds):
+    from ray_tpu_torch.rllib.env import device_env as de
+    from ray_tpu_torch.rllib.env import device_env_check as dec
+    out = {}
+    for n in K5B_SHAPES:
+        # Six steps against the plain version on a copy of the case.
+        runs = []
+        for use_path in (True, False):
+            env, state, step, ep, actions, bufs, slots = k5b_path(
+                de, dec, torch, n, seed=n)
+            for t in range(6):
+                if use_path:
+                    step(actions[t], t, dec.COUNTER + t)
+                else:
+                    de._cartpole_step_plain(
+                        state["s"], state["t"], actions[t], slots[0][t],
+                        slots[1][t], slots[2][t], ep, env.max_steps,
+                        dec.SEED, dec.COUNTER + t, False)
+            torch.cuda.synchronize()
+            runs.append([state["s"], state["t"], *bufs, *ep.tensors()])
+        for a, b in zip(*runs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K5b's path differs from plain at "
+                                     f"n={n}")
+        env, state, step, ep, actions, bufs, slots = k5b_path(
+            de, dec, torch, n, seed=n)
+        acts = list(actions.unbind(0))
+        calls = [0]
+
+        def path():
+            i = calls[0]
+            calls[0] = i + 1
+            t = i % K5B_SLOTS
+            step(acts[t], t, dec.COUNTER + i)
+
+        ends = int(ep.done_cnt.sum())
+        row = {"bound_step": hasattr(env, "bind"),
+               "path_ms": cs.time_call(path, reps=2000)}
+        row["ends_per_step"] = (int(ep.done_cnt.sum()) - ends) / calls[0]
+        row["path_host_ms"] = cs.host_ms(path, reps=2000)
+        row["path_device_ops"], row["path_device_ms"] = \
+            cs.device_work_per_call(path)
+        row["device_ms"] = cs.device_ms(path, "cartpole_kernel")
+        generic = (state, acts[0], slots[0][0], slots[1][0], slots[2][0],
+                   ep, dec.SEED, dec.COUNTER, False)
+        row["generic_ms"] = cs.time_call(lambda: env._launch(*generic),
+                                         reps=2000)
+        row["plain_ms"] = cs.time_call(
+            lambda: dec.plain_launch(env, *generic), reps=200)
+        row["bound_ms"] = cs.bound_ms(cs.device_env_bytes(
+            "cartpole_step", n, row["ends_per_step"]), 60 * n)[0]
+        out[n] = row
+    return out
+
+
+def leg_k6b(cs, torch, D, ds):
+    import numpy as np
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.parallel import collectives, q8_check
+    from ray_tpu_torch.rllib.env.spaces import Box
+    model = catalog.get_model(Box(0, 255, (84, 84, 4), np.uint8),
+                              cs.NUM_ACTIONS, {})
+    plan = convert.flax_pack_plan(model, collectives.Q8_BLOCK)
+    unpack = plan.unpack_index.to("cuda")
+    world, mean = cs.DP_RANKS, False
+    gathered = q8_check.gathered_case(world, plan.nb, seed=11,
+                                      device="cuda")
+    want = collectives.q8_gather_sum(gathered, plan.nb, mean)[unpack]
+    fused = hasattr(collectives, "Q8Decode")
+    if fused:
+        decode = collectives.Q8Decode(
+            convert.flax_leaf_table(model, collectives.Q8_BLOCK), plan.nb,
+            "cuda")
+        section = lambda: decode(gathered, mean)  # noqa: E731
+        symbol = "q8_gather_sum_unpack_kernel"
+        plain = lambda: collectives._q8_gather_sum_unpack_plain(  # noqa
+            gathered, plan.nb, mean, decode.table)
+    else:
+        section = lambda: collectives.q8_gather_sum(  # noqa: E731
+            gathered, plan.nb, mean)[unpack]
+        symbol = "q8_gather_sum_kernel"
+        plain = lambda: collectives._q8_gather_sum_plain(  # noqa: E731
+            gathered, plan.nb, mean)[plan.unpack_index.to("cuda")]
+    got = section()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K6b's decode section differs from the packed "
+                             "sum indexed")
+    ops, section_device_ms = cs.device_work_per_call(section)
+    numel = plan.unpack_index.numel()
+    return {
+        "leaf_table": fused,
+        "section_ms": cs.time_call(section, reps=2000),
+        "section_host_ms": cs.host_ms(section, reps=2000),
+        "section_device_ops": ops,
+        "section_device_ms": section_device_ms,
+        "device_ms": cs.device_ms(section, symbol),
+        "device_ms_cold_l2": cs.device_ms(section, symbol, cold=True),
+        "plain_ms": cs.time_call(plain, reps=100),
+        "bound_ms": cs.bound_ms(
+            world * (numel + 4 * plan.nb) + 4 * numel,
+            3 * world * numel)[0],
+    }
+
+
+def leg_anakin_cartpole(cs):
+    from ray_tpu_torch.rllib.env import device_env as de
+    bound = getattr(de, "CARTPOLE_BOUND_KERNEL", None)
+    kernel, absent = (de.CARTPOLE_KERNEL, ()) if bound is None else (
+        bound, (de.CARTPOLE_KERNEL,))
+    trainer, rows, launches, _ = cs.run_anakin_calls(
+        cs.CARTPOLE_ANAKIN_CONFIG, ANAKIN_CARTPOLE_CALLS, kernel,
+        absent=absent)
+    trainer.stop()
+    steady = rows[1:]
+    return {"bound_step": bound is not None,
+            "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+            / sum(r["s"] for r in steady),
+            "call_s": [r["s"] for r in rows], "launches": launches}
+
+
 def leg_phase3(cs):
     _, _, summary = cs.run_trainer(with_summary=True)
     summary.pop("profiled_iteration", None)
@@ -544,6 +713,21 @@ def leg_phase10(cs):
     return {k: summary[k] for k in keys}
 
 
+def tree_kernels():
+    """Every `CudaKernel` the tree's kernel modules define (a tree older
+    than this file's `chip_smoke.port_kernels` lacks some of its)."""
+    import importlib
+    from ray_tpu_torch._private.cuda_build import CudaKernel
+    modules = ("ray_tpu_torch.models.distributions",
+               "ray_tpu_torch.models.eps_greedy",
+               "ray_tpu_torch.parallel.collectives",
+               "ray_tpu_torch.rllib.agents.impala.vtrace",
+               "ray_tpu_torch.rllib.env.device_env",
+               "ray_tpu_torch.rllib.evaluation.device_sampler")
+    return [v for m in modules for v in vars(
+        importlib.import_module(m)).values() if isinstance(v, CudaKernel)]
+
+
 def measure(tree, legs):
     import torch
     sys.path.insert(0, os.path.abspath(tree))
@@ -557,12 +741,12 @@ def measure(tree, legs):
     from ray_tpu_torch.rllib.evaluation import device_sampler as ds
 
     t0 = time.perf_counter()
-    cuda_build.build_all(cs.port_kernels())
+    cuda_build.build_all(tree_kernels())
     out = {"tree": tree, "package": pkg,
            "build_s": time.perf_counter() - t0}
     for leg in legs:
         t0 = time.perf_counter()
-        if leg.startswith("phase"):
+        if leg.startswith("phase") or leg == "anakin_cartpole":
             out[leg] = globals()[f"leg_{leg}"](cs)
         else:
             out[leg] = globals()[f"leg_{leg}"](cs, torch, distributions, ds)

@@ -41,12 +41,53 @@
 // path; under 200 KB even at N=4096). One thread per env runs the f32
 // Euler step in the reference's order of operations, every operation
 // rounded on its own (__fmul_rn and friends: nvcc would otherwise fuse
-// a*b+c into one FMA and move the last bit), cosf/sinf without fast
-// math, the thresholds as the f32 values JAX's weak-typed comparisons
-// use, and the auto-reset from the Philox draws.
+// a*b+c into one FMA and move the last bit), sincosf without fast math
+// (one shared range reduction; on the card it gave the same bits as
+// cosf/sinf and the plain version's torch.cos/sin on every checked
+// case), the thresholds as the f32 values JAX's weak-typed comparisons
+// use, and the auto-reset from the Philox draws. Since nothing but the
+// launch bounds it, the design shortens the one thread's critical path:
+// - one round of loads: the state row (one float4), t, the action and
+//   all five episode fields are issued at entry, before any store, so
+//   nothing waits on a second round trip to memory;
+// - the reset draw is computed for every env, since it depends only on
+//   (env, launch), so its integer work overlaps the dynamics' divisions
+//   instead of following them in a divergent branch;
+// - the episode update is selects, not a branch, and the state and obs
+//   rows are stored as float4 (obs rows off 16 bytes, which the generic
+//   entry point still takes, get four scalar stores);
+// - blocks of one warp: 32 envs per block, more blocks at larger N.
+// The fixed arguments travel in one `CartPoleArgs`: `cartpole_step`
+// fills it from its arguments; `cartpole_step_bound` copies one that the
+// host built once (rllib/env/device_env.py `BoundCartPoleStep`, one per
+// trajectory slot) and takes only the action pointer and the counter.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// K5b's fixed arguments, outside the unnamed namespace: the C entry
+// point `cartpole_step_bound` takes one and must stay exported. Its
+// layout is mirrored by `_CartPoleArgs` in rllib/env/device_env.py
+// (ctypes, native alignment); keep them equal.
+struct CartPoleArgs {
+  float* s;          // [N, 4], 16-byte aligned
+  int* t;            // [N]
+  float* obs;        // rows of 4 at `obs_stride` floats
+  float* reward;     // at `out_stride`
+  uint8_t* done;     // at `out_stride`
+  float* ep_rew;     // the five episode fields, or all null
+  int* ep_len;
+  float* done_rew;
+  int* done_len;
+  int* done_cnt;
+  long long obs_stride;
+  long long out_stride;
+  unsigned long long seed;
+  int n;
+  int max_steps;
+  int reset;
+  int obs_vec;       // obs rows on 16 bytes: one float4 store each
+};
 
 namespace {
 
@@ -157,33 +198,54 @@ constexpr float kTau = 0.02f;
 constexpr float kFourThirds = 1.33333337f;  // f32(4.0 / 3.0)
 constexpr float kThetaThreshold = 0.209439516f;  // f32(12 * 2 * pi / 360)
 constexpr float kXThreshold = 2.4f;
-constexpr int kCartPoleThreads = 128;
+constexpr int kCartPoleThreads = 32;
 
 __device__ __forceinline__ float reset_uniform(unsigned w) {
   const float u = __fmul_rn(__uint2float_rn(w >> 8), 0x1p-24f);
   return __fadd_rn(__fmul_rn(u, 0.1f), -0.05f);
 }
 
-__global__ void __launch_bounds__(kCartPoleThreads) cartpole_kernel(
-    float* __restrict__ s, int* __restrict__ t,
-    const int64_t* __restrict__ actions, float* __restrict__ obs,
-    long long obs_stride, float* __restrict__ reward,
-    uint8_t* __restrict__ done, long long out_stride, Episodes ep, int N,
-    int max_steps, uint2 key, unsigned ctr_lo, unsigned ctr_hi, int reset) {
+__global__ void __launch_bounds__(kCartPoleThreads)
+    cartpole_kernel(const CartPoleArgs a, const int64_t* __restrict__ actions,
+                    unsigned long long counter) {
   const int n = blockIdx.x * kCartPoleThreads + threadIdx.x;
-  if (n >= N) return;
-  float* row = s + 4 * static_cast<long long>(n);
-  float x = 0.0f, x_dot = 0.0f, theta = 0.0f, theta_dot = 0.0f;
+  if (n >= a.n) return;
+  const bool step = !a.reset;
+  const bool book = step && a.ep_rew != nullptr;
+  float4* __restrict__ row = reinterpret_cast<float4*>(a.s) + n;
+  // One round of loads: everything the step can read, before any store.
+  float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int t_prev = 0;
+  int64_t action = 0;
+  float ep_rew = 0.0f, done_rew = 0.0f;
+  int ep_len = 0, done_len = 0, done_cnt = 0;
+  if (step) {
+    st = *row;
+    t_prev = a.t[n];
+    action = actions[n];
+  }
+  if (book) {
+    ep_rew = a.ep_rew[n];
+    ep_len = a.ep_len[n];
+    done_rew = a.done_rew[n];
+    done_len = a.done_len[n];
+    done_cnt = a.done_cnt[n];
+  }
+  // The next episode's initial state, drawn for every env.
+  const uint4 draw = philox4x32_10(
+      make_uint4(kDrawWord, n, static_cast<unsigned>(counter),
+                 static_cast<unsigned>(counter >> 32)),
+      make_uint2(static_cast<unsigned>(a.seed),
+                 static_cast<unsigned>(a.seed >> 32)));
+  float4 next = make_float4(reset_uniform(draw.x), reset_uniform(draw.y),
+                            reset_uniform(draw.z), reset_uniform(draw.w));
   bool d = true;
   int tn = 0;
-  if (!reset) {
-    x = row[0];
-    x_dot = row[1];
-    theta = row[2];
-    theta_dot = row[3];
-    const float force = actions[n] == 1 ? kForceMag : -kForceMag;
-    const float c = cosf(theta);
-    const float sn = sinf(theta);
+  if (step) {
+    const float theta = st.z, theta_dot = st.w;
+    const float force = action == 1 ? kForceMag : -kForceMag;
+    float c, sn;
+    sincosf(theta, &sn, &c);
     const float temp = __fdiv_rn(
         __fadd_rn(force, __fmul_rn(__fmul_rn(kPoleMassLength,
                                              __fmul_rn(theta_dot, theta_dot)),
@@ -198,38 +260,54 @@ __global__ void __launch_bounds__(kCartPoleThreads) cartpole_kernel(
     const float xacc = __fsub_rn(
         temp, __fdiv_rn(__fmul_rn(__fmul_rn(kPoleMassLength, thetaacc), c),
                         kTotalMass));
-    x = __fadd_rn(x, __fmul_rn(kTau, x_dot));
-    x_dot = __fadd_rn(x_dot, __fmul_rn(kTau, xacc));
-    theta = __fadd_rn(theta, __fmul_rn(kTau, theta_dot));
-    theta_dot = __fadd_rn(theta_dot, __fmul_rn(kTau, thetaacc));
-    tn = t[n] + 1;
-    d = fabsf(x) > kXThreshold || fabsf(theta) > kThetaThreshold ||
-        tn >= max_steps;
+    const float4 moved = make_float4(
+        __fadd_rn(st.x, __fmul_rn(kTau, st.y)),
+        __fadd_rn(st.y, __fmul_rn(kTau, xacc)),
+        __fadd_rn(theta, __fmul_rn(kTau, theta_dot)),
+        __fadd_rn(theta_dot, __fmul_rn(kTau, thetaacc)));
+    const int t_next = t_prev + 1;
+    d = fabsf(moved.x) > kXThreshold || fabsf(moved.z) > kThetaThreshold ||
+        t_next >= a.max_steps;
+    next.x = d ? next.x : moved.x;
+    next.y = d ? next.y : moved.y;
+    next.z = d ? next.z : moved.z;
+    next.w = d ? next.w : moved.w;
+    tn = d ? 0 : t_next;
   }
-  if (d) {
-    const uint4 draw =
-        philox4x32_10(make_uint4(kDrawWord, n, ctr_lo, ctr_hi), key);
-    x = reset_uniform(draw.x);
-    x_dot = reset_uniform(draw.y);
-    theta = reset_uniform(draw.z);
-    theta_dot = reset_uniform(draw.w);
-    tn = 0;
+  *row = next;
+  a.t[n] = tn;
+  float* o = a.obs + n * a.obs_stride;
+  if (a.obs_vec) {
+    *reinterpret_cast<float4*>(o) = next;
+  } else {
+    o[0] = next.x;
+    o[1] = next.y;
+    o[2] = next.z;
+    o[3] = next.w;
   }
-  row[0] = x;
-  row[1] = x_dot;
-  row[2] = theta;
-  row[3] = theta_dot;
-  t[n] = tn;
-  float* o = obs + n * obs_stride;
-  o[0] = x;
-  o[1] = x_dot;
-  o[2] = theta;
-  o[3] = theta_dot;
-  if (!reset) {
-    reward[n * out_stride] = 1.0f;
-    done[n * out_stride] = d;
-    book_episode(ep, n, 1.0f, d);
+  if (step) {
+    a.reward[n * a.out_stride] = 1.0f;
+    a.done[n * a.out_stride] = d;
   }
+  if (book) {
+    const float r = __fadd_rn(ep_rew, 1.0f);
+    const int l = ep_len + 1;
+    a.ep_rew[n] = d ? 0.0f : r;
+    a.ep_len[n] = d ? 0 : l;
+    a.done_rew[n] = d ? __fadd_rn(done_rew, r) : done_rew;
+    a.done_len[n] = d ? done_len + l : done_len;
+    a.done_cnt[n] = d ? done_cnt + 1 : done_cnt;
+  }
+}
+
+int launch_cartpole(const CartPoleArgs& a, const int64_t* actions,
+                    unsigned long long counter, void* stream) {
+  if (a.n <= 0) return static_cast<int>(cudaSuccess);
+  const int blocks = (a.n + kCartPoleThreads - 1) / kCartPoleThreads;
+  cartpole_kernel<<<blocks, kCartPoleThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a, actions,
+                                                         counter);
+  return static_cast<int>(cudaGetLastError());
 }
 
 uint2 philox_key(unsigned long long seed) {
@@ -261,15 +339,21 @@ extern "C" int cartpole_step(
     float* ep_rew, int* ep_len, float* done_rew, int* done_len,
     int* done_cnt, int N, int max_steps, unsigned long long seed,
     unsigned long long counter, int reset, void* stream) {
-  if (N <= 0) return static_cast<int>(cudaSuccess);
-  const Episodes ep{ep_rew, ep_len, done_rew, done_len, done_cnt};
-  const int blocks = (N + kCartPoleThreads - 1) / kCartPoleThreads;
-  cartpole_kernel<<<blocks, kCartPoleThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      s, t, actions, obs, obs_stride, reward, done, out_stride, ep, N,
-      max_steps, philox_key(seed), static_cast<unsigned>(counter),
-      static_cast<unsigned>(counter >> 32), reset);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = reinterpret_cast<uintptr_t>(obs) % 16 == 0 &&
+                   obs_stride % 4 == 0;
+  const CartPoleArgs a{s,      t,        obs,        reward,
+                       done,   ep_rew,   ep_len,     done_rew,
+                       done_len, done_cnt, obs_stride, out_stride,
+                       seed,   N,        max_steps,  reset,
+                       vec ? 1 : 0};
+  return launch_cartpole(a, actions, counter, stream);
+}
+
+// The bound step: `args` as the host built it once for a trajectory slot.
+extern "C" int cartpole_step_bound(const CartPoleArgs* args,
+                                   const int64_t* actions,
+                                   unsigned long long counter, void* stream) {
+  return launch_cartpole(*args, actions, counter, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -25,7 +25,9 @@ the data-parallel gradient exchange (`parallel/collectives.py`): every
 leaf in a block-aligned slot of one buffer, so that the q8 codes,
 scales and residuals are the JAX package's, leaf by leaf.
 `state_dict_to_flax` builds the flax params tree itself from those
-leaves.
+leaves. `flax_leaf_table` describes the same packing per leaf (flat
+offset, packed offset, sizes, packed strides) for the exchange's
+unpacking kernel, in place of the plan's index per element.
 
 SAC keeps three parameter sets and a target (`sac_policy.py:96-119`):
 `sac_weights_from_flax` turns the JAX SAC policy's weights
@@ -201,6 +203,96 @@ def flax_pack_plan(model: torch.nn.Module, block: int) -> PackPlan:
     unpack_index[pack_index[real]] = torch.nonzero(real)[:, 0]
     return PackPlan(pack_index, unpack_index, sizes,
                     pack_index.numel() // block)
+
+
+class LeafLayout(NamedTuple):
+    """Where one parameter's elements sit in the exchange's packed buffer,
+    as a permutation of a view of at most 4 dimensions (the K6b leaf
+    table, `parallel/collectives.py` `Q8Decode`).
+
+    The parameter is seen as [rows, *sizes] in its own (row-major)
+    element order, starting at `offset` in the concatenation of the
+    flattened parameters (`parameters()` order). Its element (o, i1, i2,
+    i3) sits at packed position `packed_offset + (i1 * strides[0] + i2 *
+    strides[1] + i3 * strides[2]) * rows + o`: `rows` is the packed
+    slot's fastest dimension, `strides` count in packed rows of `rows`
+    elements.
+    """
+    offset: int
+    packed_offset: int
+    rows: int
+    sizes: Tuple[int, int, int]
+    strides: Tuple[int, int, int]
+
+    @property
+    def numel(self) -> int:
+        return self.rows * math.prod(self.sizes)
+
+
+def _leaf_layouts(named: Mapping[str, torch.Tensor],
+                  conv_out_hw: Optional[Tuple[int, int]]):
+    """(parameter name, rows, sizes, strides) of each flax leaf in flax's
+    tree-flatten order: the index form of `flax_leaves`' layout map."""
+    layers = sorted({k.split(".")[0] for k in named})
+    readers = _conv_readers(layers)
+    for layer in layers:
+        if layer in named:  # a bare parameter: the identity
+            yield layer, 1, (1, 1, named[layer].numel()), (0, 0, 1)
+            continue
+        yield (f"{layer}.bias", 1, (1, 1, named[f"{layer}.bias"].numel()),
+               (0, 0, 1))
+        shape = tuple(named[f"{layer}.weight"].shape)
+        if len(shape) == 4:  # OIHW -> HWIO: (i, h, w) -> (h * W + w) * I + i
+            out, cin, h, w = shape
+            yield f"{layer}.weight", out, (cin, h, w), (1, w * cin, cin)
+        elif len(shape) == 2 and layer in readers:
+            # [out, (C, H, W)] -> [(H, W, C), out]
+            h, w, c = _conv_out_shape(_conv_channels(named), shape[1],
+                                      conv_out_hw)
+            yield f"{layer}.weight", shape[0], (c, h, w), (1, w * c, c)
+        elif len(shape) == 2:  # [out, in] -> [in, out]
+            yield f"{layer}.weight", shape[0], (1, 1, shape[1]), (0, 0, 1)
+        else:
+            raise ValueError(f"{layer}: unexpected weight rank {len(shape)}")
+
+
+def flax_leaf_table(model: torch.nn.Module, block: int) -> List[LeafLayout]:
+    """The layout of each of `model`'s parameters (in `parameters()`
+    order) in `flax_pack_plan(model, block)`'s packed buffer: per leaf a
+    flat offset, a packed offset, sizes and packed strides, in place of
+    an index per element. `unpack_leaves(arange, table)` reproduces the
+    plan's `unpack_index`."""
+    named = dict(model.named_parameters())
+    offsets, offset = {}, 0
+    for name, p in named.items():
+        offsets[name] = offset
+        offset += p.numel()
+    table, packed = {}, 0
+    for name, rows, sizes, strides in _leaf_layouts(
+            named, getattr(model, "conv_out_hw", None)):
+        leaf = LeafLayout(offsets[name], packed, rows, sizes, strides)
+        if leaf.numel != named[name].numel():
+            raise ValueError(f"{name}: layout of {leaf.numel} elements for "
+                             f"{named[name].numel()}")
+        table[name] = leaf
+        packed += -(-leaf.numel // block) * block
+    return [table[name] for name in named]
+
+
+def unpack_leaves(packed: torch.Tensor, table: List[LeafLayout]
+                  ) -> torch.Tensor:
+    """The packed buffer's leaves back in `parameters()` element order
+    (one strided view per leaf, concatenated): the plain form of K6b's
+    unpacking. `packed` is a contiguous 1-D tensor."""
+    base = packed.storage_offset()
+    parts = []
+    for leaf in table:
+        r = leaf.rows
+        parts.append(torch.as_strided(
+            packed, (r,) + tuple(leaf.sizes),
+            (1,) + tuple(s * r for s in leaf.strides),
+            base + leaf.packed_offset).reshape(-1))
+    return torch.cat(parts)
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],

@@ -18,7 +18,9 @@ packed buffer:
   the new residual in place;
 - the transport all-gathers the wire images;
 - K6b `q8_gather_sum` dequantizes every sender's image and sums them in
-  rank order in f32 (divided by the world size for a mean).
+  rank order in f32 (divided by the world size for a mean); with a
+  model's leaf table (`Q8Decode`, built once per model) it writes the
+  sum straight in `parameters()` order, the unpacking gather fused in.
 
 Each kernel's wrapper launches it on CUDA tensors and runs its plain
 PyTorch version, the same arithmetic, on CPU tensors only.
@@ -33,12 +35,15 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
+import numpy as np
 import torch
 
-from .._private.cuda_build import CudaKernel, stream_handle
+from .._private.cuda_build import (CudaKernel, device_stream_handle,
+                                   stream_handle)
 from .._private.serialization import Q8_BLOCK, Q8_SCALE_EPS
+from ..models.convert import LeafLayout, unpack_leaves
 
 
 CODECS = ("fp32", "q8")
@@ -55,6 +60,11 @@ Q8_GATHER_SUM_KERNEL = CudaKernel(
     "q8_gather_sum", "q8.cu", "q8_gather_sum",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p])
+# K6b's form with the leaf table (the exchange's path, `Q8Decode`).
+Q8_GATHER_UNPACK_KERNEL = CudaKernel(
+    "q8_gather_sum_unpack", "q8.cu", "q8_gather_sum_unpack",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def resolve_codec(value=None) -> str:
@@ -206,15 +216,126 @@ def q8_gather_sum(gathered: torch.Tensor, nb: int,
 
 
 # ---------------------------------------------------------------------
+# K6b with the leaf table: the sum in parameters() order
+# ---------------------------------------------------------------------
+# A tile of the unpacking kernel: 4,096 elements of one leaf, at most 64
+# rows (csrc/q8.cu kTileElems, kMaxTileRows); 16 ints per tile. Flags:
+# char4 code loads (the leaf's rows a multiple of 4), float4 output rows
+# (every row of the tile on a 16-byte boundary).
+UNPACK_TILE = 4096
+UNPACK_TILE_ROWS = 64
+UNPACK_TILE_FIELDS = 16
+UNPACK_VEC_IN, UNPACK_VEC_OUT = 1, 2
+
+
+def q8_unpack_tiles(table: List[LeafLayout]) -> np.ndarray:
+    """The unpacking kernel's grid: int32 [num_tiles, 16], one block per
+    tile (the record's fields are listed in csrc/q8.cu). A leaf of `rows`
+    rows and `row_len` columns is cut into tiles of tp rows (the largest
+    power of two up to min(rows, 64)) by 4096 / tp columns."""
+    records = []
+    for leaf in table:
+        rows, (_, d2, d3) = leaf.rows, leaf.sizes
+        row_len = leaf.numel // rows
+        tp = 1 << min(rows.bit_length(), UNPACK_TILE_ROWS.bit_length()) - 1
+        tr = UNPACK_TILE // tp
+        for o0 in range(0, rows, tp):
+            for r0 in range(0, row_len, tr):
+                out0, cols = leaf.offset + o0 * row_len + r0, min(
+                    tr, row_len - r0)
+                flags = (UNPACK_VEC_IN if rows % 4 == 0 else 0) | (
+                    UNPACK_VEC_OUT if out0 % 4 == 0 and row_len % 4 == 0
+                    and cols % 4 == 0 else 0)
+                records.append([
+                    out0, row_len, leaf.packed_offset + o0, rows,
+                    tp.bit_length() - 1, tr.bit_length() - 1,
+                    min(tp, rows - o0), cols, r0, d2 * d3, d3,
+                    *leaf.strides, flags, 0])
+    return np.asarray(records, dtype=np.int32).reshape(
+        -1, UNPACK_TILE_FIELDS)
+
+
+def _q8_gather_sum_unpack_plain(gathered: torch.Tensor, nb: int,
+                                mean: bool, table: List[LeafLayout]
+                                ) -> torch.Tensor:
+    """Plain version of K6b with the leaf table: the packed sum, then each
+    leaf's strided view of it in `parameters()` order."""
+    return unpack_leaves(_q8_gather_sum_plain(gathered, nb, mean), table)
+
+
+class Q8Decode:
+    """The decode of one model's q8 exchange: K6b with the model's leaf
+    table (`models/convert.py` `flax_leaf_table`), the world's gradient
+    written straight in `parameters()` order.
+
+    Built once, where the policy builds its packing plan: the table's
+    tiles on the device, the output buffer, `nb` and the element count.
+    A call checks only the gathered wire images and returns the output
+    buffer, which the next call overwrites (the policy's `p.grad` views
+    of it live until its next `zero_grad`). On the CPU a call runs the
+    plain version and returns a fresh tensor."""
+
+    def __init__(self, table: List[LeafLayout], nb: int, device):
+        device = torch.device(device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no q8 gather-sum kernel for {device}")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.table, self.nb, self.device = list(table), nb, device
+        self.numel = sum(leaf.numel for leaf in self.table)
+        packed_end = max(leaf.packed_offset + leaf.numel
+                         for leaf in self.table)
+        if packed_end > nb * Q8_BLOCK or self.numel >= 1 << 31:
+            raise ValueError(f"the leaf table ({self.numel} elements up to "
+                             f"packed {packed_end}) does not fit {nb} "
+                             "blocks in int32 positions")
+        self.wire = wire_size(nb)
+        tiles = q8_unpack_tiles(self.table)
+        self.num_tiles = len(tiles)
+        self.cuda = device.type == "cuda"
+        if not self.cuda:
+            return
+        self.index = device.index
+        self.tiles = torch.from_numpy(tiles.reshape(-1)).to(device)
+        self.out = torch.empty(self.numel, dtype=torch.float32,
+                               device=device)
+
+    def __call__(self, gathered: torch.Tensor, mean: bool) -> torch.Tensor:
+        """Σ over senders (in order) of q_s * scale_s, divided by D when
+        `mean`, in `parameters()` order: f32 [numel]."""
+        if gathered.dtype is not torch.uint8 or gathered.dim() != 2 \
+                or gathered.shape[1] != self.wire \
+                or not gathered.shape[0] \
+                or gathered.device != self.device \
+                or not gathered.is_contiguous():
+            raise ValueError(
+                f"gathered wire images must be contiguous uint8 [D, "
+                f"{self.wire}] on {self.device}, got {gathered.dtype} "
+                f"{tuple(gathered.shape)} on {gathered.device}")
+        if not self.cuda:
+            return _q8_gather_sum_unpack_plain(gathered, self.nb, mean,
+                                               self.table)
+        Q8_GATHER_UNPACK_KERNEL.launch(
+            gathered.data_ptr(), self.out.data_ptr(), self.nb,
+            gathered.shape[0], int(mean), self.tiles.data_ptr(),
+            self.num_tiles, device_stream_handle(self.index))
+        return self.out
+
+
+# ---------------------------------------------------------------------
 # the exchange
 # ---------------------------------------------------------------------
 def psum_quantized(packed: torch.Tensor, ef: torch.Tensor, group,
-                   mean: bool = False) -> torch.Tensor:
+                   mean: bool = False,
+                   decode: Optional[Q8Decode] = None) -> torch.Tensor:
     """The q8 all-reduce of one packed gradient over `group`: encode
     (updating this rank's residual `ef` in place), all-gather the wire
     images, dequantize and sum (divided by the world size when `mean`).
-    Every rank gets the same result."""
+    Every rank gets the same result: the packed sum, or with `decode`
+    the sum in its model's `parameters()` order."""
     gathered = group.all_gather(q8_encode_ef(packed, ef))
+    if decode is not None:
+        return decode(gathered, mean)
     return q8_gather_sum(gathered, num_blocks(packed), mean)
 
 

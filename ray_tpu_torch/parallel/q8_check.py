@@ -3,7 +3,8 @@
 The comparison that `chip_smoke.py` phase 2 and the `gpu` tests of
 `tests/test_torch_kernels.py` share: the same inputs through the kernel
 wrapper and through the plain version on the same device, held equal
-bit for bit (codes, scales, residuals, sums). Inputs are made with
+bit for bit (codes, scales, residuals, sums; K6b with a model's leaf
+table also against the packed sum indexed by the plan). Inputs are made with
 numpy from a seed, block by block, so one buffer covers the edge cases
 of `tests/test_collectives.py:30-96` (all-zero blocks, zero blocks next
 to live ones, single-element tails, values near and below the float32
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.convert import flax_leaf_table, flax_pack_plan
 from . import collectives
 from .collectives import Q8_BLOCK
 
@@ -107,6 +109,38 @@ def check_gather_sum(world: int, nb: int, mean: bool, seed: int,
             f"mean={mean}: {int((got != want).sum())} elements, max "
             f"{float((got - want).abs().max())}")
     return gathered, float((got - want).abs().max())
+
+
+def check_gather_sum_unpack(model, world: int, mean: bool, seed: int,
+                            device="cuda"):
+    """K6b with `model`'s leaf table (`Q8Decode`) vs its plain version
+    (`_q8_gather_sum_unpack_plain`) and vs the packed-order K6b indexed
+    by the plan's `unpack_index`, on `world` senders' images: equal bit
+    for bit. Returns (the decode, the gathered images, 0.0)."""
+    plan = flax_pack_plan(model, Q8_BLOCK)
+    table = flax_leaf_table(model, Q8_BLOCK)
+    gathered = gathered_case(world, plan.nb, seed, device)
+    decode = collectives.Q8Decode(table, plan.nb, device)
+    got = decode(gathered, mean).clone()
+    want = collectives._q8_gather_sum_unpack_plain(gathered, plan.nb, mean,
+                                                   table)
+    indexed = collectives.q8_gather_sum(gathered, plan.nb, mean)[
+        plan.unpack_index.to(gathered.device)]
+    if gathered.is_cuda:
+        torch.cuda.synchronize()
+    for name, other in (("plain", want), ("the packed sum indexed", indexed)):
+        if not torch.equal(got, other):
+            raise AssertionError(
+                f"q8_gather_sum_unpack differs from {name} at D={world} "
+                f"nb={plan.nb} mean={mean}: {int((got != other).sum())} "
+                f"elements, max {float((got - other).abs().max())}")
+    return decode, gathered, float((got - want).abs().max())
+
+
+def gather_sum_unpack_bytes(world: int, nb: int, numel: int) -> int:
+    """What K6b with the leaf table must move: every sender's codes of the
+    `numel` real elements and its scales read, the sum written."""
+    return world * (numel + 4 * nb) + 4 * numel
 
 
 def encode_bytes(nb: int) -> int:

@@ -26,6 +26,13 @@ and `done_out` may likewise be strided [N] views. `episodes`
 (`EpisodeAccumulator`) takes the Anakin step's episode bookkeeping into
 the same launch.
 
+`bind(state, obs_slots, reward_slots, done_slots, seed=..., episodes=...)`
+fixes a rollout's buffers once (one obs, reward and done view per
+trajectory slot) and returns a step `(actions, slot, counter)`. For
+CartPole (`BoundCartPoleStep`) the buffers are checked at bind time and
+a step checks only the action tensor and launches K5b with its fixed
+arguments in one prebuilt struct; other envs' bound step calls `step`.
+
 Randomness is Philox4x32-10 keyed by `seed` at the host's launch
 counter `counter` (see the source note in `csrc/device_env.cu`); the
 plain versions compute the same stream with torch integer ops, so on the
@@ -42,7 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..._private.cuda_build import CudaKernel, stream_handle
+from ..._private.cuda_build import (CudaKernel, device_stream_handle,
+                                   stream_handle)
 from .env import init_cartpole_constants
 from .spaces import Box, Discrete
 
@@ -107,9 +115,12 @@ def _draws(n: int, seed: int, counter: int, device) -> List[torch.Tensor]:
     return [w[:, 0] for w in _stream(DRAW_WORD, n, seed, counter, device)]
 
 
+_U64 = 1 << 64
+
+
 def _check_rng(seed: int, counter: int) -> None:
     for name, v in (("seed", seed), ("counter", counter)):
-        if not 0 <= int(v) < 1 << 64:
+        if not 0 <= int(v) < _U64:
             raise ValueError(f"{name} {v} is not a 64-bit unsigned value")
 
 
@@ -319,12 +330,31 @@ def _synthetic_atari_step_cuda(t, target, actions, obs, reward, done,
 # ---------------------------------------------------------------------
 # K5b: CartPole
 # ---------------------------------------------------------------------
-# One thread per env; see the source note in csrc/device_env.cu.
+# One thread per env; see the source note in csrc/device_env.cu. Two
+# entry points launch the one kernel: `cartpole_step` takes every
+# argument (`DeviceEnv.step`), `cartpole_step_bound` a `_CartPoleArgs`
+# built once by `BoundCartPoleStep` (the Anakin rollout's path); each
+# counts its own launches.
 CARTPOLE_KERNEL = CudaKernel(
     "cartpole_step", "device_env.cu", "cartpole_step",
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
     + [ctypes.c_longlong] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
     + [ctypes.c_uint64] * 2 + [ctypes.c_int, ctypes.c_void_p])
+CARTPOLE_BOUND_KERNEL = CudaKernel(
+    "cartpole_step_bound", "device_env.cu", "cartpole_step_bound",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p])
+
+
+class _CartPoleArgs(ctypes.Structure):
+    """`CartPoleArgs` of csrc/device_env.cu, field for field (native
+    alignment on both sides)."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "s", "t", "obs", "reward", "done", "ep_rew", "ep_len", "done_rew",
+        "done_len", "done_cnt")] + [
+        ("obs_stride", ctypes.c_longlong), ("out_stride", ctypes.c_longlong),
+        ("seed", ctypes.c_uint64), ("n", ctypes.c_int),
+        ("max_steps", ctypes.c_int), ("reset", ctypes.c_int),
+        ("obs_vec", ctypes.c_int)]
 
 
 def _f32(x: float) -> float:
@@ -414,6 +444,15 @@ def _cartpole_step_plain(s, t, actions, obs, reward, done, episodes,
     obs.copy_(new_s)
 
 
+def _check_cartpole_state(s, t, n: int, device) -> None:
+    """The state K5b reads a row of as one float4: f32 [n, 4] contiguous
+    from a 16-byte boundary, t int32 [n]."""
+    _check_state("s", s, (n, 4), torch.float32, device)
+    if s.data_ptr() % 16:
+        raise ValueError("s must start on a 16-byte boundary")
+    _check_state("t", t, (n,), torch.int32, device)
+
+
 def _cartpole_step_cuda(s, t, actions, obs, reward, done, episodes,
                         max_steps, seed, counter, reset):
     """Launch K5b on the state's device after checking every argument."""
@@ -423,8 +462,7 @@ def _cartpole_step_cuda(s, t, actions, obs, reward, done, episodes,
     if s.dim() != 2:
         raise ValueError(f"s must be [N, 4], got {tuple(s.shape)}")
     n = s.shape[0]
-    _check_state("s", s, (n, 4), torch.float32, device)
-    _check_state("t", t, (n,), torch.int32, device)
+    _check_cartpole_state(s, t, n, device)
     _check_rng(seed, counter)
     obs_stride = _row_stride("obs", obs, n, (4,), torch.float32, device,
                              align=4)
@@ -434,6 +472,110 @@ def _cartpole_step_cuda(s, t, actions, obs, reward, done, episodes,
         s.data_ptr(), t.data_ptr(), ptrs[0], obs.data_ptr(), obs_stride,
         ptrs[1], ptrs[2], out_stride, *eps, n, max_steps, seed, counter,
         int(bool(reset)), stream_handle(s))
+
+
+# ---------------------------------------------------------------------
+# Bound steps: a rollout's buffers fixed once
+# ---------------------------------------------------------------------
+class BoundStep:
+    """`env.step` of one rollout's state into fixed buffers: trajectory
+    slot `slot` writes its observation into `obs_slots[slot]` and its
+    reward and done into `reward_slots[slot]` and `done_slots[slot]`.
+    This generic form passes them to `step`, which checks every argument
+    on every call."""
+
+    def __init__(self, env: "DeviceEnv", state: Dict[str, torch.Tensor],
+                 obs_slots: Sequence[torch.Tensor],
+                 reward_slots: Sequence[torch.Tensor],
+                 done_slots: Sequence[torch.Tensor], seed: int,
+                 episodes: Optional[EpisodeAccumulator] = None):
+        self.env, self.state, self.seed = env, state, seed
+        self.obs_slots = list(obs_slots)
+        self.reward_slots = list(reward_slots)
+        self.done_slots = list(done_slots)
+        self.episodes = episodes
+        sizes = {len(self.obs_slots), len(self.reward_slots),
+                 len(self.done_slots)}
+        if len(sizes) != 1 or not self.obs_slots:
+            raise ValueError("obs_slots, reward_slots and done_slots must "
+                             "be equally long, with at least one slot")
+        _check_rng(seed, 0)
+
+    def __call__(self, actions: torch.Tensor, slot: int,
+                 counter: int) -> None:
+        """One step of every env into slot `slot` under launch `counter`."""
+        self.env.step(self.state, actions, self.seed, counter,
+                      obs_out=self.obs_slots[slot],
+                      reward_out=self.reward_slots[slot],
+                      done_out=self.done_slots[slot],
+                      episodes=self.episodes)
+
+
+class BoundCartPoleStep(BoundStep):
+    """CartPole's bound step (K5b's lean launch path). Bind time checks
+    the state, the episode accumulator and every slot's buffers (obs rows
+    on 16-byte boundaries, for K5b's float4 stores; reward and done
+    sharing one row stride) and builds one `_CartPoleArgs` per slot. A
+    step checks only the action tensor (int64 [N], contiguous, on the
+    state's device) and the counter, then makes one 4-argument C call. On
+    the CPU a step runs the plain version."""
+
+    def __init__(self, env: "DeviceCartPole", state, obs_slots,
+                 reward_slots, done_slots, seed: int, episodes=None):
+        super().__init__(env, state, obs_slots, reward_slots, done_slots,
+                         seed, episodes)
+        s, t = state["s"], state["t"]
+        if s.dim() != 2:
+            raise ValueError(f"s must be [N, 4], got {tuple(s.shape)}")
+        n, device = s.shape[0], s.device
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no cartpole_step kernel for {device}")
+        _check_cartpole_state(s, t, n, device)
+        eps = _episode_pointers(episodes, n, device)
+        self.device, self._shape = device, (n,)
+        self._cuda = device.type == "cuda"
+        self._index = device.index
+        self._args = []  # one per slot, alive as long as the step
+        for i, (obs, rew, done) in enumerate(zip(
+                self.obs_slots, self.reward_slots, self.done_slots)):
+            obs_stride = _row_stride(f"obs_slots[{i}]", obs, n, (4,),
+                                     torch.float32, device, align=16)
+            out_stride = _row_stride(f"reward_slots[{i}]", rew, n, (),
+                                     torch.float32, device)
+            if _row_stride(f"done_slots[{i}]", done, n, (), torch.bool,
+                           device) != out_stride:
+                raise ValueError(f"reward_slots[{i}] and done_slots[{i}] "
+                                 "must share one row stride")
+            if self._cuda:
+                self._args.append(_CartPoleArgs(
+                    s.data_ptr(), t.data_ptr(), obs.data_ptr(),
+                    rew.data_ptr(), done.data_ptr(), *eps, obs_stride,
+                    out_stride, seed, n, env.max_steps, 0, 1))
+        self._addresses = [ctypes.addressof(a) for a in self._args]
+
+    def __call__(self, actions: torch.Tensor, slot: int,
+                 counter: int) -> None:
+        if not 0 <= counter < _U64:
+            raise ValueError(f"counter {counter} is not a 64-bit unsigned "
+                             "value")
+        if not self._cuda:
+            _check_state("actions", actions, self._shape, torch.int64,
+                         self.device)
+            _cartpole_step_plain(
+                self.state["s"], self.state["t"], actions,
+                self.obs_slots[slot], self.reward_slots[slot],
+                self.done_slots[slot], self.episodes, self.env.max_steps,
+                self.seed, counter, False)
+            return
+        if actions.dtype is not torch.int64 \
+                or actions.shape != self._shape \
+                or actions.get_device() != self._index \
+                or not actions.is_contiguous():
+            _check_state("actions", actions, self._shape, torch.int64,
+                         self.device)
+        CARTPOLE_BOUND_KERNEL.launch(self._addresses[slot],
+                                     actions.data_ptr(), counter,
+                                     device_stream_handle(self._index))
 
 
 # ---------------------------------------------------------------------
@@ -488,6 +630,17 @@ class DeviceEnv:
                      counter, False)
         return state, obs, reward, done
 
+    def bind(self, state: Dict[str, torch.Tensor],
+             obs_slots: Sequence[torch.Tensor],
+             reward_slots: Sequence[torch.Tensor],
+             done_slots: Sequence[torch.Tensor], *, seed: int,
+             episodes: Optional[EpisodeAccumulator] = None) -> BoundStep:
+        """`step` of `state` into fixed per-slot buffers (see
+        `BoundStep`); the result is called as `(actions, slot,
+        counter)`."""
+        return BoundStep(self, state, obs_slots, reward_slots, done_slots,
+                         seed, episodes)
+
     def state_from_numpy(self, arrays: Dict[str, np.ndarray], device="cpu"
                          ) -> Dict[str, torch.Tensor]:
         """A JAX env state (per-env dicts stacked into numpy arrays, as
@@ -525,7 +678,7 @@ class DeviceSyntheticAtari(DeviceEnv):
 class DeviceCartPole(DeviceEnv):
     """CartPole on the device (`jax_env.py:85-132`), with the dynamics
     and termination of `env.py:CartPole`; obs = state. One K5b launch
-    per batched step."""
+    per batched step; `bind` gives the checked-once launch path."""
 
     STATE = {"s": (torch.float32, (4,)), "t": (torch.int32, ())}
 
@@ -538,6 +691,13 @@ class DeviceCartPole(DeviceEnv):
                        _cartpole_step_cuda, "cartpole_step")
         fn(state["s"], state["t"], actions, obs, reward, done, episodes,
            self.max_steps, seed, counter, reset)
+
+    def bind(self, state, obs_slots, reward_slots, done_slots, *,
+             seed: int, episodes: Optional[EpisodeAccumulator] = None
+             ) -> "BoundCartPoleStep":
+        """K5b's lean launch path: see `BoundCartPoleStep`."""
+        return BoundCartPoleStep(self, state, obs_slots, reward_slots,
+                                 done_slots, seed, episodes)
 
 
 # -- registry ------------------------------------------------------------

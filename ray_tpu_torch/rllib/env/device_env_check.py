@@ -10,6 +10,9 @@ comparison launches the kernel and the plain version from two copies of
 the case, each writing into the middle slot of a 3-slot env-major
 buffer, and requires every output byte for byte (CartPole's f32 state
 and observation within 1 ulp) with the neighbouring slots untouched.
+`compare_bound_with_plain` does the same for CartPole's bound step
+(K5b as the Anakin optimizer launches it) over several steps into the
+slots of env-major buffers.
 """
 
 from typing import Dict, Tuple
@@ -134,5 +137,76 @@ def compare_with_plain(env: de.DeviceEnv, n: int, reset: bool,
         raise AssertionError(f"{where}: wrote outside its slot")
     ends = int(kdone[:, 1].sum())
     if not reset and n >= 5 and not ends:
+        raise AssertionError(f"{where}: no episode ended")
+    return {"max_ulps": max_ulps, "max_abs_err": max_err, "ends": ends}
+
+
+def bound_case(n: int, steps: int, device, seed: int):
+    """CartPole's (env, state, episodes, actions [steps, n], buffers,
+    slots) for a bound run: env-major obs [n, steps + 1, 4] (slot 0
+    left alone), reward and done [n, steps], all outside the written
+    slots filled with markers."""
+    env = de.DeviceCartPole()
+    state, _, ep = env_case(env, n, device, seed)
+    actions = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, 2, (steps, n))).to(device)
+    obs = torch.full((n, steps + 1, 4), 7.0, device=device)
+    rew = torch.full((n, steps), -1.0, device=device)
+    done = torch.zeros(n, steps, dtype=torch.bool, device=device)
+    slots = ([obs[:, t + 1] for t in range(steps)], rew.unbind(1),
+             done.unbind(1))
+    return env, state, ep, actions, (obs, rew, done), slots
+
+
+def compare_bound_with_plain(n: int, steps: int, seed: int,
+                             device="cuda") -> dict:
+    """`steps` CartPole steps through the bound step (`BoundCartPoleStep`:
+    K5b on a CUDA device) and through the plain version, from two copies
+    of one case, into per-slot views of env-major buffers; raises
+    AssertionError where they differ (the f32 state and obs within 1
+    ulp, everything else byte for byte, slot 0 untouched). Returns
+    `max_ulps`, `max_abs_err` and the episode ends (`ends`)."""
+    runs = []
+    for use_bound in (True, False):
+        env, state, ep, actions, bufs, slots = bound_case(n, steps, device,
+                                                          seed)
+        before = de.CARTPOLE_BOUND_KERNEL.launches
+        if use_bound:
+            step = env.bind(state, *slots, seed=SEED, episodes=ep)
+            for t in range(steps):
+                step(actions[t], t, COUNTER + t)
+        else:
+            for t in range(steps):
+                de._cartpole_step_plain(
+                    state["s"], state["t"], actions[t], slots[0][t],
+                    slots[1][t], slots[2][t], ep, env.max_steps, SEED,
+                    COUNTER + t, False)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        launched = de.CARTPOLE_BOUND_KERNEL.launches - before
+        want = steps if use_bound and state["s"].is_cuda else 0
+        if launched != want:
+            raise AssertionError(f"cartpole_step_bound: {launched} launches "
+                                 f"for {steps} steps, want {want}")
+        runs.append((state, bufs, ep.tensors()))
+    (ks, kbufs, kep), (ps, pbufs, pep) = runs
+    where = f"cartpole bound step at n={n}, {steps} steps"
+    max_ulps, max_err = 0, 0.0
+    for name, a, b in [("s", ks["s"], ps["s"]), ("obs", kbufs[0],
+                                                 pbufs[0])]:
+        max_ulps = max(max_ulps, int(ulps(a, b).max()))
+        max_err = max(max_err, float((a - b).abs().max()))
+    if max_ulps > 1:
+        raise AssertionError(f"{where}: f32 outputs {max_ulps} ulp apart")
+    for name, a, b in [("t", ks["t"], ps["t"]), ("reward", kbufs[1],
+                                                 pbufs[1]),
+                       ("done", kbufs[2], pbufs[2])] + list(zip(
+                           de.EpisodeAccumulator.FIELDS, kep, pep)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{where}: {name} differs from plain")
+    if not (kbufs[0][:, 0] == 7).all():
+        raise AssertionError(f"{where}: wrote outside its slots")
+    ends = int(kbufs[2].sum())
+    if n >= 5 and not ends:
         raise AssertionError(f"{where}: no episode ended")
     return {"max_ulps": max_ulps, "max_abs_err": max_err, "ends": ends}

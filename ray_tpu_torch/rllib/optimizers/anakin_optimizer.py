@@ -10,8 +10,10 @@ nothing back until the call's one stats read (the reference's
 `float(v)` at `:184`). Per env step: the policy forward under
 `no_grad`, the action draw (kernel K2, uniforms from the policy's
 generator) and the env step (kernel K5a or K5b,
-`rllib/env/device_env.py`), which writes the next observation straight
-into its slot of the trajectory buffer and books finished episodes.
+`rllib/env/device_env.py`, through the step `DeviceEnv.bind` returns
+once for the optimizer's buffers), which writes the next observation
+straight into its slot of the trajectory buffer and books finished
+episodes.
 Per update: `TorchPolicy.apply_update` (kernel K1 inside the loss).
 
 Semantics follow the reference's `_build_fn` (`:85-177`): on-policy
@@ -84,13 +86,20 @@ class AnakinOptimizer(PolicyOptimizer):
         self._env_state, _ = device_env.reset(
             N, seed, device=device, counter=0, obs_out=self._boot)
         self._counter = 1
+        # Env step t writes obs slot t + 1 (the bootstrap buffer after the
+        # last) and reward/done column t: bound once, checked once.
+        self._env_step = device_env.bind(
+            self._env_state,
+            [self._obs[:, t] for t in range(1, T)] + [self._boot],
+            self._rewards.unbind(1), self._dones.unbind(1), seed=seed,
+            episodes=self._episodes)
 
     # ------------------------------------------------------------------
     def _rollout(self) -> Dict[str, torch.Tensor]:
         """T env steps of N envs under the current weights; returns the
         fragment batch (views of the reused buffers, enqueued and not
         waited for)."""
-        policy, env = self.policy, self.env
+        policy, env_step = self.policy, self._env_step
         N, T = self.num_envs, self.T
         self._obs[:, 0].copy_(self._boot)
         actions, logits = [], []
@@ -99,11 +108,7 @@ class AnakinOptimizer(PolicyOptimizer):
                 dist_inputs, _ = policy.model(self._obs[:, t])
                 action, _ = policy.dist_class(dist_inputs).sample_with_logp(
                     policy.generator)
-            env.step(self._env_state, action, self._seed, self._counter,
-                     obs_out=self._obs[:, t + 1] if t + 1 < T
-                     else self._boot,
-                     reward_out=self._rewards[:, t],
-                     done_out=self._dones[:, t], episodes=self._episodes)
+            env_step(action, t, self._counter)
             self._counter += 1
             actions.append(action)
             logits.append(dist_inputs)

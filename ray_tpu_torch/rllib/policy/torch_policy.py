@@ -67,7 +67,7 @@ import torch
 
 from ...device import resolve_device
 from ...models import catalog
-from ...models.convert import flax_pack_plan
+from ...models.convert import flax_leaf_table, flax_pack_plan, unpack_leaves
 from ...models.distributions import StepRecord, ThreadRecords, get_action_dist
 from ...parallel import collectives
 from .. import sample_batch as sb
@@ -204,8 +204,17 @@ class TorchPolicy(Policy):
                 p.copy_(v.view_as(p))
         if codec == "q8":
             plan = flax_pack_plan(self.model, collectives.Q8_BLOCK)
+            table = flax_leaf_table(self.model, collectives.Q8_BLOCK)
+            if not torch.equal(unpack_leaves(
+                    torch.arange(plan.nb * collectives.Q8_BLOCK), table),
+                    plan.unpack_index):
+                raise RuntimeError("the q8 leaf table does not match the "
+                                   "packing plan")
             self._pack_index = plan.pack_index.to(self.device)
-            self._unpack_index = plan.unpack_index.to(self.device)
+            # K6b with the leaf table: the world's gradient comes back in
+            # parameters() order, with no unpacking gather.
+            self._q8_decode = collectives.Q8Decode(table, plan.nb,
+                                                   self.device)
             sizes = plan.leaf_sizes
             self.ef_state = collectives.ef_zeros(plan.nb, self.device)
         else:
@@ -313,7 +322,9 @@ class TorchPolicy(Policy):
         """The collective seam: every rank's gradient -> the world's, in
         `p.grad`. fp32: one all-reduce of the flattened gradient. q8:
         pack into the flax-ordered block slots, `psum_quantized` (K6a,
-        all-gather, K6b) with this rank's residual, unpack."""
+        all-gather, K6b) with this rank's residual; K6b writes the sum in
+        parameters() order (`Q8Decode`), so `p.grad` are views of its
+        output buffer until the next update's `zero_grad`."""
         params = list(self.model.parameters())
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1)
@@ -322,7 +333,8 @@ class TorchPolicy(Policy):
         if self.allreduce_codec == "q8":
             packed = torch.cat([flat, flat.new_zeros(1)])[self._pack_index]
             flat = collectives.psum_quantized(
-                packed, self.ef_state, self.group, mean)[self._unpack_index]
+                packed, self.ef_state, self.group, mean,
+                decode=self._q8_decode)
         else:
             self.group.all_reduce_(flat)
             if mean:

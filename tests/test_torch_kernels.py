@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from ray_tpu_torch._private import cuda_build
-from ray_tpu_torch.models import catalog, distributions, eps_greedy
+from ray_tpu_torch.models import catalog, convert, distributions, eps_greedy
 from ray_tpu_torch.models.convert import flax_pack_plan
 from ray_tpu_torch.parallel import collectives, q8_check
 from ray_tpu_torch.rllib.agents.impala import vtrace
@@ -1539,6 +1539,75 @@ def test_device_env_kernels_reject_what_they_cannot_take(cuda):
             None, 200, 0, 1, False)
 
 
+# K5b through the bound step (the Anakin optimizer's launch path): the
+# CartPole Anakin shape (32), a ragged block (37), many blocks (4096) and
+# one env; 6 steps each, crossing episode ends.
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 32, 37, 4096])
+def test_cartpole_bound_step_matches_plain(cuda, n):
+    """Every output of 6 bound steps equals the plain version's (the
+    state and obs within 1 ulp, the rest byte for byte, slot 0
+    untouched), one launch of the bound entry point per step."""
+    got = device_env_check.compare_bound_with_plain(n, 6, seed=n,
+                                                    device=cuda)
+    assert got["max_ulps"] <= 1
+    assert got["ends"] > 0 or n < 5
+
+
+@pytest.mark.gpu
+def test_cartpole_bound_step_is_one_device_operation(cuda):
+    env, state, ep, actions, _, slots = device_env_check.bound_case(
+        32, 4, cuda, seed=1)
+    step = env.bind(state, *slots, seed=5, episodes=ep)
+    before = device_env.CARTPOLE_KERNEL.launches
+    assert _device_ops(lambda: step(actions[0], 0, 9)) == 1
+    assert device_env.CARTPOLE_KERNEL.launches == before
+
+
+@pytest.mark.gpu
+def test_cartpole_bound_step_checks_only_the_actions(cuda):
+    env, state, ep, actions, _, slots = device_env_check.bound_case(
+        8, 2, cuda, seed=2)
+    step = env.bind(state, *slots, seed=5, episodes=ep)
+    before = device_env.CARTPOLE_BOUND_KERNEL.launches
+    for bad, match in [(actions[0].int(), "int64"),
+                       (actions[0].cpu(), "actions is on cpu"),
+                       (actions[:, :4], "actions must be"),
+                       (torch.zeros(16, dtype=torch.int64,
+                                    device=cuda)[::2], "not contiguous")]:
+        with pytest.raises(ValueError, match=match):
+            step(bad, 0, 1)
+    with pytest.raises(ValueError, match="counter"):
+        step(actions[0], 0, -1)
+    assert device_env.CARTPOLE_BOUND_KERNEL.launches == before
+    with pytest.raises(ValueError, match="16-byte"):
+        env.bind(state, [torch.zeros(8 * 4 + 1, device=cuda)[1:].view(8, 4),
+                         slots[0][1]], *slots[1:], seed=5, episodes=ep)
+
+
+@pytest.mark.gpu
+def test_cartpole_anakin_rollout_takes_the_bound_step(cuda):
+    """A CartPole Anakin call (2 updates x 5 env steps): every env step
+    launches K5b through the bound entry point, none through the
+    generic one."""
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer
+    t = IMPALATrainer(config={
+        "env": "CartPole-v0", "anakin": True, "num_workers": 0,
+        "num_envs_per_worker": 32, "rollout_fragment_length": 5,
+        "anakin_updates_per_call": 2, "min_iter_time_s": 0,
+        "model": {"fcnet_hiddens": [16]}, "seed": 0,
+        "device": str(cuda)})
+    try:
+        kernels = (device_env.CARTPOLE_BOUND_KERNEL,
+                   device_env.CARTPOLE_KERNEL)
+        before = [k.launches for k in kernels]
+        stats = t.optimizer.step()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [10, 0]
+        assert all(np.isfinite(v) for v in stats.values())
+    finally:
+        t.stop()
+
+
 def _anakin_trainer(device, n=8, T=4, updates=1):
     from ray_tpu_torch.rllib.agents.impala import IMPALATrainer
     return IMPALATrainer(config={
@@ -1624,6 +1693,54 @@ def test_q8_gather_sum_kernel_matches_plain(cuda, world, mean, nb):
     assert collectives.Q8_GATHER_SUM_KERNEL.launches == before + 1
 
 
+def _model_of(name):
+    from ray_tpu_torch.rllib.env.spaces import Box
+    if name == "nature_cnn":
+        return catalog.get_model(Box(0, 255, (84, 84, 4), np.uint8), 6, {})
+    if name == "cartpole_fc":
+        return catalog.get_model(Box(-1.0, 1.0, (4,)), 2, {})
+    return catalog.get_model(Box(-1.0, 1.0, (3,)), 2, {"free_log_std": True})
+
+
+# K6b with the leaf table: the Nature CNN's (the data-parallel path's,
+# nb 1,654), the CartPole FC net's and PPO Pendulum's (free_log_std).
+@pytest.mark.gpu
+@pytest.mark.parametrize("world", [2, 8])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("name", ["nature_cnn", "cartpole_fc",
+                                  "pendulum_fc"])
+def test_q8_gather_sum_unpack_matches_plain(cuda, world, mean, name):
+    """Bit for bit against its plain version and the packed-order K6b
+    indexed by the plan's `unpack_index`, one launch."""
+    before = collectives.Q8_GATHER_UNPACK_KERNEL.launches
+    q8_check.check_gather_sum_unpack(_model_of(name), world, mean,
+                                     seed=world, device=cuda)
+    assert collectives.Q8_GATHER_UNPACK_KERNEL.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_q8_decode_is_one_device_operation(cuda):
+    decode, gathered, _ = q8_check.check_gather_sum_unpack(
+        _model_of("nature_cnn"), 2, False, seed=4, device=cuda)
+    assert _device_ops(lambda: decode(gathered, False)) == 1
+
+
+@pytest.mark.gpu
+def test_q8_decode_matches_the_cpu(cuda):
+    """K6b with the leaf table on the card equals the plain version on
+    the CPU."""
+    model = _model_of("cartpole_fc")
+    plan = flax_pack_plan(model, collectives.Q8_BLOCK)
+    table = convert.flax_leaf_table(model, collectives.Q8_BLOCK)
+    gathered = q8_check.gathered_case(2, plan.nb, seed=6, device="cpu")
+    card = collectives.Q8Decode(table, plan.nb, cuda)(gathered.to(cuda),
+                                                      True)
+    host = collectives.Q8Decode(table, plan.nb, "cpu")(gathered, True)
+    assert torch.equal(card.cpu(), host)
+    with pytest.raises(ValueError, match="gathered wire images"):
+        collectives.Q8Decode(table, plan.nb, cuda)(gathered, True)
+
+
 @pytest.mark.gpu
 def test_q8_kernels_match_the_cpu(cuda):
     """K6a and K6b on the card equal the plain versions on the CPU (which
@@ -1686,6 +1803,27 @@ def test_new_kernels_have_sources_and_entry_points():
     assert collectives.Q8_ENCODE_KERNEL.source.name == "q8.cu"
     assert collectives.Q8_GATHER_SUM_KERNEL.library_path() \
         == collectives.Q8_ENCODE_KERNEL.library_path()
+
+
+def test_bound_and_unpack_entry_points_share_their_libraries():
+    """K5b's bound entry point and K6b's leaf-table form live in the
+    sources (and libraries) of the generic ones."""
+    for kernel, other in ((device_env.CARTPOLE_BOUND_KERNEL,
+                           device_env.CARTPOLE_KERNEL),
+                          (collectives.Q8_GATHER_UNPACK_KERNEL,
+                           collectives.Q8_GATHER_SUM_KERNEL)):
+        source = kernel.source.read_text()
+        assert f'extern "C" int {kernel.symbol}(' in source
+        assert kernel.library_path() == other.library_path()
+        assert kernel.name != other.name
+    # The ctypes mirror of K5b's argument struct names the C struct's
+    # fields in order.
+    source = device_env.CARTPOLE_KERNEL.source.read_text()
+    body = source[source.index("struct CartPoleArgs {"):]
+    body = body[:body.index("};")]
+    names = [f for f, _ in device_env._CartPoleArgs._fields_]
+    positions = [body.index(f" {name};") for name in names]
+    assert positions == sorted(positions)
 
 
 def test_eps_greedy_kernel_has_its_source_and_entry_point():
