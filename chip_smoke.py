@@ -5,8 +5,9 @@
     python3 chip_smoke.py dp    # phase 6 alone, on a machine of 2+ cards
     python3 chip_smoke.py dqn   # phase 9 alone (K8 built alone)
     python3 chip_smoke.py sac   # phase 10 with K9's part of phase 2
+    python3 chip_smoke.py workers  # phase 11 alone (K1 and K2 built alone)
 
-Ten phases, any failure exits non-zero (no phase is caught, nothing
+Eleven phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -121,6 +122,22 @@ falls back to the CPU):
    the last replay batch with injected normals on the card against the
    CPU (f32, TF32 off; 1e-4 of 1 + |CPU| on every stat, |td| and
    parameter).
+11. Remote rollout workers: `ray_tpu_torch.init(local_mode=True)`, then
+   `IMPALATrainer` at phase 3's width (SyntheticAtari-v0, the Nature CNN
+   with its bf16 trunk, 50-step fragments, 1600-row updates) sampled by
+   2 remote workers x 16 envs, each with its own policy on the card, fed
+   `weight_sync_codec: "q8_delta"` syncs, 3 iterations. Launch counts
+   set to 0 before the trainer is built: V-trace once per update, the
+   sampling kernel once per env step of each worker (the sample tasks
+   in flight at the end included: local mode ran them already). At
+   least one full and one q8-delta sync, no stale fallback; after a
+   version-gated sync each worker's weights are the broadcaster's
+   receiver-view base bit for bit and within half a q8 step (max|block|
+   / 254) of the learner's at that version; the delta payload at least
+   3.5x smaller than the full one. It prints env steps/s, the bytes of
+   a full and of a delta sync, the encode and apply (decode) times and
+   the learner's `get_weights` time, beside the card's name and power
+   limit.
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
@@ -336,6 +353,14 @@ SAC_SPLIT_UPDATES = 50  # updates timed part by part, synced between parts
 # tanhf and log1pf may differ by an ulp from PyTorch's build of them, and
 # the log-det term is a difference of terms up to ~40 (log_std at -20).
 SQUASHED_TOL = 1e-5
+
+# Phase 11: phase 3's configuration sampled by 2 remote rollout workers
+# of 16 envs each (tests/test_impala.py:198-207 at full width), fed
+# q8-delta weight syncs.
+WORKERS_NUM, WORKERS_ITERS = 2, 3
+WORKERS_CONFIG = dict(TRAINER_CONFIG, num_workers=WORKERS_NUM,
+                      num_envs_per_worker=NUM_ENVS // WORKERS_NUM,
+                      weight_sync_codec="q8_delta")
 
 # Phase 6: phase 3's configuration on a world of 2 ranks (16 envs each).
 DP_RANKS = 2
@@ -2980,6 +3005,190 @@ def k9_entries(row, fwd, bwd, k9f, k9b):
     ]
 
 
+# ---------------------------------------------------------------------
+# phase 11: remote rollout workers and the weight plane
+# ---------------------------------------------------------------------
+def _weights_within_q8_step(got, true, payloads):
+    """-> the largest excess of |got - true| over half the q8 step of the
+    delta that built the version (max|block| / 254 per element, zero
+    after a full sync), with two f32 ulps of |true| for the adds; <= 0
+    when the bound holds."""
+    import numpy as np
+    from ray_tpu_torch._private import serialization
+    bound = np.zeros(true.size, np.float32)
+    for p in payloads:
+        if p.codec == "q8_delta":
+            scales = np.repeat(p.scales, serialization.Q8_BLOCK)
+            bound[p.start:p.stop] = scales[:p.stop - p.start] / 2
+    excess = np.abs(got - true) - bound - 2 * np.spacing(np.abs(true))
+    return float(excess.max())
+
+
+def run_workers(card):
+    """Phase 11: `IMPALATrainer` with 2 remote rollout workers x 16 envs
+    on `ray_tpu_torch.init(local_mode=True)`, q8-delta weight syncs.
+    -> (K1's and K2's launches, the summary)."""
+    import ray_tpu_torch
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        return _run_workers(card)
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _run_workers(card):
+    import numpy as np
+    import torch
+    import ray_tpu_torch
+    from ray_tpu_torch._private import metrics, weight_sync
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
+
+    # Every sample of the encode and decode times, in the order set.
+    gauges = {"weight_sync_ms": [], "weight_apply_ms": []}
+    set_gauge = metrics.set_gauge
+
+    def recording_set_gauge(name, value):
+        if name in gauges:
+            gauges[name].append(value)
+        set_gauge(name, value)
+
+    counters0 = metrics.snapshot()["counters"]
+    metrics.set_gauge = recording_set_gauge
+    vtrace.VTRACE_KERNEL.launches = 0
+    distributions.CATEGORICAL_KERNEL.launches = 0
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        # The optimizer's constructor sends the first (full) sync and
+        # each worker's first sample requests.
+        trainer = IMPALATrainer(config=dict(WORKERS_CONFIG))
+        log(f"  trainer and {WORKERS_NUM} workers built and primed in "
+            f"{time.perf_counter() - t0:.2f} s")
+        learner = trainer.workers.local_worker
+        get_weights = learner.get_weights
+        get_weights_s = []
+
+        def timed_get_weights():
+            t = time.perf_counter()
+            out = get_weights()
+            get_weights_s.append(time.perf_counter() - t)
+            return out
+
+        # The broadcaster reads the learner's weights through it.
+        learner.get_weights = timed_get_weights
+        opt = trainer.optimizer
+        bc = opt.broadcaster
+        iters = []
+        for i in range(WORKERS_ITERS):
+            t0 = time.perf_counter()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = result["timesteps_this_iter"]
+            loss = result["info"]["learner"]["total_loss"]
+            iters.append({"s": dt, "steps": steps})
+            log(f"  iter {i}: {dt:.3f} s, {steps} env steps, "
+                f"{steps / dt:.1f} env steps/s, sync version {bc.version}, "
+                f"total_loss {loss:.4f}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite loss at iter {i}")
+        stats = opt.stats()
+        counters = metrics.snapshot()["counters"]
+        syncs = {codec: counters.get(f"weight_sync_codec.{codec}", 0)
+                 - counters0.get(f"weight_sync_codec.{codec}", 0)
+                 for codec in ("full", "q8_delta")}
+        if syncs["full"] < 1 or syncs["q8_delta"] < 1:
+            raise AssertionError(f"weight syncs by codec: {syncs}")
+        if stats["num_weight_sync_stale_fallbacks"] != 0:
+            raise AssertionError(
+                f"{stats['num_weight_sync_stale_fallbacks']} stale "
+                "fallbacks")
+        # Each worker, after a version-gated sync to the current version:
+        # the receiver-view base bit for bit, and within half a q8 step
+        # of the learner's weights at that version.
+        payloads = bc.payloads()
+        true = weight_sync.flatten_f32(bc.encoder.weights)[0]
+        for w in trainer.workers.remote_workers:
+            bc.sync(w)
+            bc.drain_acks()
+            held = ray_tpu_torch.get(w.weight_sync_version.remote())
+            got = weight_sync.flatten_f32(
+                ray_tpu_torch.get(w.get_weights.remote()))[0]
+            if held != bc.version or \
+                    got.tobytes() != bc.encoder.base.tobytes():
+                raise AssertionError(
+                    f"worker at version {held} of {bc.version} does not "
+                    "hold the receiver-view base")
+            excess = _weights_within_q8_step(got, true, payloads)
+            if excess > 0:
+                raise AssertionError(
+                    f"worker weights beyond a q8 step by {excess}")
+        full_bytes = bc.encoder.full_payloads()[0].nbytes
+        delta_bytes = sum(p.nbytes for p in payloads)
+        if payloads[0].codec != "q8_delta" or \
+                full_bytes / delta_bytes < 3.5:
+            raise AssertionError(
+                f"last sync {payloads[0].codec}: {delta_bytes} bytes "
+                f"against {full_bytes} for the full blob")
+        # The sample tasks in flight ran already (local mode): their
+        # env steps launched K2 too.
+        in_flight = sum(ray_tpu_torch.get(ref).count
+                        for ref in opt.sample_tasks.pending())
+    finally:
+        metrics.set_gauge = set_gauge
+        if trainer is not None:
+            trainer.stop()
+    policy = trainer.get_policy()
+    launches = {"vtrace": vtrace.VTRACE_KERNEL.launches,
+                "categorical": distributions.CATEGORICAL_KERNEL.launches}
+    env_steps = (result["num_steps_sampled"] + in_flight) \
+        // WORKERS_CONFIG["num_envs_per_worker"]
+    if launches["categorical"] != env_steps:
+        raise AssertionError(
+            f"sampling kernel launched {launches['categorical']} times for "
+            f"{env_steps} env steps of the workers")
+    updates = policy.global_timestep // WORKERS_CONFIG["train_batch_size"]
+    if launches["vtrace"] != updates or updates <= 0:
+        raise AssertionError(
+            f"vtrace kernel launched {launches['vtrace']} times for "
+            f"{updates} updates")
+    steady = iters[1:]  # the first iteration includes cuDNN's warm-up
+    encode_ms = gauges["weight_sync_ms"]
+    summary = {
+        "card": card,
+        "iter_s": [r["s"] for r in iters],
+        "env_steps_per_s": sum(r["steps"] for r in iters)
+        / sum(r["s"] for r in iters),
+        "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+        / sum(r["s"] for r in steady),
+        "num_steps_sampled": result["num_steps_sampled"],
+        "num_steps_trained": result["num_steps_trained"],
+        "updates": updates,
+        "syncs": syncs,
+        "sync_version": bc.version,
+        "num_weight_sync_skipped": stats["num_weight_sync_skipped"],
+        "bytes_full_sync": full_bytes,
+        "bytes_delta_sync": delta_bytes,
+        "delta_ratio": full_bytes / delta_bytes,
+        "encode_ms_full": encode_ms[0],
+        "encode_ms_delta_mean": float(np.mean(encode_ms[1:])),
+        "apply_ms_mean": float(np.mean(gauges["weight_apply_ms"])),
+        "apply_ms_max": float(np.max(gauges["weight_apply_ms"])),
+        "learner_get_weights_ms_mean": 1e3 * float(np.mean(get_weights_s)),
+        "launches": launches,
+    }
+    log(f"  phase 11 on {card}: {summary['env_steps_per_s']:.1f} env "
+        f"steps/s ({summary['env_steps_per_s_steady']:.1f} past the "
+        f"first iteration); sync bytes full {full_bytes}, delta "
+        f"{delta_bytes} ({summary['delta_ratio']:.3f}x); encode ms full "
+        f"{encode_ms[0]:.3f}, delta {summary['encode_ms_delta_mean']:.3f}; "
+        f"apply (decode) ms {summary['apply_ms_mean']:.3f}; learner "
+        f"get_weights ms {summary['learner_get_weights_ms_mean']:.3f}")
+    log(f"  workers summary: {json.dumps(summary)}")
+    return launches, summary
+
+
 def log_build(kernels):
     """Build `kernels` (one nvcc per source, all at once) and log ptxas's
     register/spill lines."""
@@ -3042,6 +3251,13 @@ def main():
         log("phase 2: K9f and K9b vs plain")
         k9 = check_squashed_gaussian_all()
         return finish(card, k9_entries(*k9, *run_phase10()))
+    if sys.argv[1:] == ["workers"]:
+        # Phase 11 alone (K1 and K2 built alone).
+        cuda_build.build_all([vtrace.VTRACE_KERNEL,
+                              distributions.CATEGORICAL_KERNEL])
+        log("phase 11 alone: IMPALATrainer, remote rollout workers")
+        log(json.dumps({"launches": run_workers(card)[0]}))
+        return 0
     if sys.argv[1:] == ["dqn"]:
         # Phase 9 alone: its host-bound rates without phases 1-8 before.
         from ray_tpu_torch.models import eps_greedy
@@ -3215,6 +3431,12 @@ def main():
 
     k8_launches = run_phase9()
     k9_launches = run_phase10()
+
+    log("phase 11: IMPALATrainer at full width, 2 remote rollout workers "
+        "on the local-mode runtime (q8-delta weight syncs)")
+    workers_launches, _ = run_workers(card)
+    for name in ("vtrace", "categorical"):
+        launches[name] += workers_launches[name]
 
     entries = [
         {"name": "vtrace", "route": "cuda",

@@ -3,12 +3,15 @@
 Counterpart of `ray_tpu/rllib/agents/impala/impala.py` (parity:
 `rllib/agents/impala/impala.py:109`): V-trace policy +
 `AsyncSamplesOptimizer`, in local mode (`num_workers=0`: the local
-worker samples through the learner's policy on the device) or on the
-Sebulba inline-actor path (`num_inline_actors >= 1`: actor threads step
-batched host envs with device-resident observations); a LearnerThread
-runs the updates in both. In Anakin mode (`anakin: True`) the
-`AnakinOptimizer` steps device-resident envs, infers and updates on the
-card. Remote workers wait for a later slice; asking for them raises.
+worker samples through the learner's policy on the device), with remote
+rollout workers (`num_workers >= 1`, under
+`ray_tpu_torch.init(local_mode=True)`: each worker's own policy on the
+trainer's device, fed versioned weight syncs, `weight_sync_codec`) or
+on the Sebulba inline-actor path (`num_inline_actors >= 1`: actor
+threads step batched host envs with device-resident observations); a
+LearnerThread runs the updates in all three. In Anakin mode (`anakin:
+True`) the `AnakinOptimizer` steps device-resident envs, infers and
+updates on the card.
 With `num_gpus_for_learner` = D >= 2 each rank of a `torch.distributed`
 world runs local mode on 1/D of the envs and of each train batch and
 exchanges gradients (fp32 or q8); the data-parallel Anakin and Sebulba
@@ -28,11 +31,6 @@ from .vtrace_policy import DEFAULT_CONFIG, VTraceTorchPolicy
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = {
-    "num_workers": "remote rollout workers",
-}
-
-
 def make_async_optimizer(workers, config):
     if config.get("anakin"):
         from ...env.device_env import make_device_env
@@ -50,6 +48,9 @@ def make_async_optimizer(workers, config):
         # A data-parallel rank learns on its share of the global batch.
         train_batch_size=config["train_batch_size"] // _world(config),
         rollout_fragment_length=config["rollout_fragment_length"],
+        max_sample_requests_in_flight_per_worker=config[
+            "max_sample_requests_in_flight_per_worker"],
+        broadcast_interval=config["broadcast_interval"],
         learner_queue_size=config["learner_queue_size"],
         num_sgd_iter=config["num_sgd_iter"],
         sgd_minibatch_size=config.get("sgd_minibatch_size", 0),
@@ -70,7 +71,8 @@ def make_async_optimizer(workers, config):
         # Sebulba pipeline gears (see evaluation/device_sampler.py):
         # double-buffered env groups + k-step on-device selection.
         sebulba_env_groups=config.get("sebulba_env_groups", 2),
-        sebulba_onchip_steps=config.get("sebulba_onchip_steps", 1))
+        sebulba_onchip_steps=config.get("sebulba_onchip_steps", 1),
+        weight_sync_codec=config.get("weight_sync_codec", "auto"))
 
 
 def _train_on_whole_fragments(config, slots_key: str, message: str):
@@ -166,10 +168,6 @@ def validate_config(config):
             config, "_anakin_num_envs",
             "anakin mode trains on whole %d-step fragment batches; "
             "overriding train_batch_size=%s")
-    for key, what in _NOT_PORTED.items():
-        if config.get(key):
-            raise NotImplementedError(
-                f"{key}={config[key]!r}: {what}: not ported yet")
     if (config.get("model") or {}).get("use_lstm"):
         raise NotImplementedError(
             "use_lstm: recurrent IMPALA is not ported yet")

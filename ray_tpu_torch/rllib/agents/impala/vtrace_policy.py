@@ -33,13 +33,16 @@ DEFAULT_CONFIG = with_common_config({
     "rollout_fragment_length": 50,
     "train_batch_size": 500,
     "min_iter_time_s": 10,
-    # Local mode only in this slice (the JAX package defaults to 2
-    # remote workers).
+    # The JAX package defaults to 2 remote workers; here 0 (local mode),
+    # since remote workers need `ray_tpu_torch.init(local_mode=True)`.
     "num_workers": 0,
     "num_envs_per_worker": 1,
     # IMPALA sequences cross episode boundaries (V-trace cuts at dones).
     "pack_fragments": True,
     "use_gae": False,
+    # Learner queue/broadcast knobs (reference: impala.py:14-17).
+    "max_sample_requests_in_flight_per_worker": 2,
+    "broadcast_interval": 1,
     "learner_queue_size": 16,
     "num_sgd_iter": 1,
     # 0 = one full-batch update per train batch; else num_sgd_iter

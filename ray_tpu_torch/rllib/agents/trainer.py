@@ -18,8 +18,10 @@ each train batch and exchanges gradients (`_make_learner_group`). With
 space, and episodes of inline (Sebulba) actors join the result. The
 evaluation worker is one local `RolloutWorker` that acts with
 `explore=False`, synced to the learner's weights and filters before
-each evaluation. Remote workers, worker-failure recovery, checkpoints
-and the cluster-metrics push wait for the runtime port.
+each evaluation. Remote workers run on the local-mode runtime
+(`ray_tpu_torch.init(local_mode=True)`); worker-failure recovery,
+checkpoints and the cluster-metrics push wait for the multi-process
+runtime.
 """
 
 from __future__ import annotations
@@ -52,6 +54,13 @@ COMMON_CONFIG = {
     # Policy-level compute dtype: "auto" defers to RAY_TPU_COMPUTE_DTYPE
     # ("f32"); bf16 casting of the whole parameter tree is not ported.
     "compute_dtype": "auto",
+    # Weight broadcast codec to remote workers (_private/weight_sync.py):
+    # "full" ships the whole float32 tree every sync; "q8_delta" ships
+    # int8 block-quantized deltas with sender-side error feedback and a
+    # version handshake that full-syncs stale receivers. "auto" is
+    # "full": local mode passes payloads by reference, so a delta saves
+    # no bytes.
+    "weight_sync_codec": "auto",
     # === Device ===
     # "cuda" (default) or "cpu"; "cuda" without a card raises.
     "device": "cuda",

@@ -1,9 +1,9 @@
 """Episode metric aggregation.
 
 Counterpart of `ray_tpu/rllib/evaluation/metrics.py` (parity:
-`rllib/evaluation/metrics.py:39` `collect_metrics`), for the local
-worker, on one rank or on every rank of a data-parallel learner
-(`world_totals`): remote workers wait for the runtime port.
+`rllib/evaluation/metrics.py:39` `collect_metrics`): the local
+worker's and the remote workers' episodes, on one rank or on every
+rank of a data-parallel learner (`world_totals`).
 """
 
 from __future__ import annotations
@@ -12,9 +12,18 @@ from typing import List
 
 import numpy as np
 
+import ray_tpu_torch
 
-def collect_episodes(workers) -> List:
-    return list(workers.local_worker.get_metrics())
+
+def collect_episodes(workers, timeout: float = 60) -> List:
+    episodes = list(workers.local_worker.get_metrics())
+    if workers.remote_workers:
+        refs = [w.get_metrics.remote() for w in workers.remote_workers]
+        ready, _ = ray_tpu_torch.wait(refs, num_returns=len(refs),
+                                      timeout=timeout)
+        for r in ready:
+            episodes.extend(ray_tpu_torch.get(r))
+    return episodes
 
 
 def world_totals(group, episodes, steps_sampled: int, steps_trained: int):

@@ -2,20 +2,26 @@
 
 Counterpart of `ray_tpu/rllib/optimizers/async_samples_optimizer.py`
 (parity: `rllib/optimizers/async_samples_optimizer.py:19`,
-`aso_learner.py:13` `LearnerThread`) in two modes:
+`aso_learner.py:13` `LearnerThread`) in three modes:
 
 - local mode (`num_workers=0`): the local worker samples, a
   LearnerThread owns the device update;
+- remote rollout workers (`num_workers >= 1`, on the local-mode
+  runtime): `max_sample_requests_in_flight_per_worker` sample tasks per
+  worker; every harvested batch joins the train batch, the learner's
+  weights are broadcast once per update past `broadcast_interval`
+  through the weight plane (`utils/weight_broadcast.py`: versioned q8
+  deltas or full blobs), and each worker gets a version-gated sync
+  before its next sample task;
 - Sebulba inline actors (`num_inline_actors >= 1`): `InlineActorThread`s
   step batched host envs on this process through a
   `DeviceSebulbaSampler` that selects actions with the learner's live
   policy on the device, and hand device-resident fragments straight to
   the LearnerThread.
 
-Remote actors, the weight broadcaster, straggler detection, the elastic
-fleet, the chaos hooks and the cluster-metrics gauges wait for the
-runtime port, as does the host-side `VectorSampler`
-(`device_rollouts=False`).
+Straggler detection, the elastic fleet, the chaos hooks, learner-state
+checkpoints and the cluster-metrics gauges wait for the multi-process
+runtime, as does the host-side `VectorSampler` (`device_rollouts=False`).
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ import logging
 import queue
 import threading
 import time
-from typing import List
+from typing import List, Optional
+
+import ray_tpu_torch
 
 from ..sample_batch import SampleBatch
+from ..utils.actors import TaskPool
+from ..utils.weight_broadcast import WeightBroadcaster
 from ..utils.window_stat import WindowStat
 from .policy_optimizer import PolicyOptimizer, Timer
 
@@ -55,6 +65,9 @@ class LearnerThread(threading.Thread):
         self.sgd_minibatch_size = sgd_minibatch_size
         self.sgd_sequence_length = sgd_sequence_length
         self.stopped = False
+        # Set after every update; the remote-worker path broadcasts the
+        # new weights and clears it.
+        self.weights_updated = False
         self.stats = {}
         self.error = None  # first exception that killed the thread
         self.learner_queue_size = WindowStat("learner_queue_size", 50)
@@ -89,6 +102,7 @@ class LearnerThread(threading.Thread):
                 for _ in range(self.num_sgd_iter):
                     stats = policy.learn_on_batch(batch)
             self.stats = stats
+        self.weights_updated = True
         self.outqueue.put(batch.count)
 
     def stop(self):
@@ -133,12 +147,14 @@ class InlineActorThread(threading.Thread):
 
 
 class AsyncSamplesOptimizer(PolicyOptimizer):
-    """Sample on the local worker or on inline actors; learn on the
-    LearnerThread."""
+    """Sample on the local worker, on remote workers or on inline actors;
+    learn on the LearnerThread."""
 
     def __init__(self, workers,
                  train_batch_size: int = 500,
                  rollout_fragment_length: int = 50,
+                 max_sample_requests_in_flight_per_worker: int = 2,
+                 broadcast_interval: int = 1,
                  learner_queue_size: int = LEARNER_QUEUE_MAX_SIZE,
                  num_sgd_iter: int = 1,
                  sgd_minibatch_size: int = 0,
@@ -153,11 +169,9 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
                  obs_delta="auto",
                  obs_delta_budget: int = 256,
                  sebulba_env_groups: int = 1,
-                 sebulba_onchip_steps: int = 1):
+                 sebulba_onchip_steps: int = 1,
+                 weight_sync_codec: str = "auto"):
         super().__init__(workers)
-        if workers.remote_workers:
-            raise NotImplementedError(
-                "remote rollout workers are not ported yet")
         self.train_batch_size = train_batch_size
         self.rollout_fragment_length = rollout_fragment_length
         self.learner = LearnerThread(
@@ -173,6 +187,22 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
         self._inline_actors: List[InlineActorThread] = []
         self._inline_sampled_seen = 0
         self._warm = False
+        self._broadcaster: Optional[WeightBroadcaster] = None
+        if workers.remote_workers:
+            # The remote-worker path (parity: `async_samples_optimizer.
+            # py:244-271`): in-flight sample tasks, the train batch
+            # being gathered, and the weight plane, which encodes and
+            # puts once per learner update and routes q8 deltas or full
+            # blobs per worker by the version it holds.
+            self.broadcast_interval = broadcast_interval
+            self.max_in_flight = max_sample_requests_in_flight_per_worker
+            self.sample_tasks = TaskPool()
+            self._batch_buffer: List[SampleBatch] = []
+            self._batch_buffer_count = 0
+            self.num_steps_since_broadcast = 0
+            self._broadcaster = WeightBroadcaster(
+                lambda: self.workers.local_worker.get_weights(),
+                codec=weight_sync_codec)
         if num_inline_actors > 0:
             # Built before any thread starts: a refused config leaves
             # nothing running.
@@ -184,6 +214,30 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
         self.learner.start()
         for a in self._inline_actors:
             a.start()
+        if workers.remote_workers:
+            # Every worker starts from the learner's weights (a full
+            # sync), then gets its first sample requests.
+            self._broadcast_weights()
+            for w in workers.remote_workers:
+                self._broadcaster.sync(w)
+                for _ in range(self.max_in_flight):
+                    self.sample_tasks.add(w, w.sample.remote())
+
+    @property
+    def num_weight_broadcasts(self) -> int:
+        if self._broadcaster is None:
+            return 0
+        return self._broadcaster.num_broadcasts
+
+    @property
+    def broadcaster(self) -> Optional[WeightBroadcaster]:
+        """The weight plane's sender (its encoder holds the versions);
+        None without remote workers."""
+        return self._broadcaster
+
+    def _broadcast_weights(self):
+        self._broadcaster.broadcast()
+        self.num_steps_since_broadcast = 0
 
     def _build_inline_actors(self, num_inline_actors, inline_env,
                              inline_num_envs, inline_env_config,
@@ -237,6 +291,8 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
     def step(self) -> dict:
         if self._inline_actors:
             return self._step_inline()
+        if self.workers.remote_workers:
+            return self._step_remote()
         return self._step_local()
 
     def _check_learner_alive(self):
@@ -280,6 +336,66 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
         self.learner_stats = self.learner.stats
         return self.learner_stats
 
+    def _step_remote(self) -> dict:
+        """Remote workers: harvest sample tasks and refill them until at
+        least one learner update has been drained (parity:
+        `async_samples_optimizer.py:480-500`). In local mode each sample
+        task runs inside `.remote()`, so a harvest never waits; the
+        learner thread updates meanwhile."""
+        sampled = trained = 0
+        # The first step includes the kernels' build and cuDNN's
+        # autotuning.
+        timeout = 180.0 if self._warm else 600.0
+        deadline = time.monotonic() + timeout
+        while trained == 0:
+            self._check_learner_alive()
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"remote workers produced no trained batch within "
+                    f"{timeout}s (learner stalled?)")
+            with self.timers["sample"]:
+                sampled += self._pull_and_enqueue()
+            while not self.learner.outqueue.empty():
+                trained += self.learner.outqueue.get()
+            if trained == 0:
+                time.sleep(0.001)
+        self._warm = True
+        self.num_steps_sampled += sampled
+        self.num_steps_trained += trained
+        self.learner_stats = self.learner.stats
+        return self.learner_stats
+
+    def _pull_and_enqueue(self) -> int:
+        """Collect finished sample tasks, build train batches and feed
+        the learner, broadcast new weights, and resubmit each worker's
+        task after a version-gated sync (parity:
+        `async_samples_optimizer.py:506-571`)."""
+        sampled = 0
+        for worker, ref in self.sample_tasks.completed(blocking_wait=True):
+            batch = ray_tpu_torch.get(ref)
+            sampled += batch.count
+            self._batch_buffer.append(batch)
+            self._batch_buffer_count += batch.count
+            if self._batch_buffer_count >= self.train_batch_size:
+                train_batch = SampleBatch.concat_samples(self._batch_buffer)
+                self._batch_buffer = []
+                self._batch_buffer_count = 0
+                try:
+                    self.learner.inqueue.put(train_batch, timeout=30.0)
+                except queue.Full:
+                    logger.warning("learner queue full; dropping batch")
+            # Refresh the broadcast if the learner moved on.
+            if self.learner.weights_updated and \
+                    self.num_steps_since_broadcast >= self.broadcast_interval:
+                self.learner.weights_updated = False
+                self._broadcast_weights()
+            self.num_steps_since_broadcast += 1
+            # Version-gated: a worker holding the current broadcast is
+            # skipped; a worker behind its base gets the full blob.
+            self._broadcaster.sync(worker)
+            self.sample_tasks.add(worker, worker.sample.remote())
+        return sampled
+
     def inline_episodes(self):
         """Drain episode metrics from inline-actor samplers (merged into
         trainer results by `Trainer._result_from_optimizer`)."""
@@ -318,6 +434,9 @@ class AsyncSamplesOptimizer(PolicyOptimizer):
 
     def stats(self) -> dict:
         out = super().stats()
+        if self._broadcaster is not None:
+            out.update(self._broadcaster.stats())
+            out["num_weight_broadcasts"] = self.num_weight_broadcasts
         out.update({
             "learner_queue": self.learner.learner_queue_size.stats(),
             "timing": {

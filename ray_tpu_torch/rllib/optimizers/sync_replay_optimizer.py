@@ -36,7 +36,9 @@ class SyncReplayOptimizer(PolicyOptimizer):
         super().__init__(workers)
         if workers.remote_workers:
             raise NotImplementedError(
-                "remote rollout workers are not ported yet")
+                "remote rollout workers in the synchronous optimizers "
+                "are not ported yet (ROADMAP Queue A item A6, after "
+                "A6b); IMPALA's async optimizer runs them")
         self.learning_starts = learning_starts
         self.prioritized_replay_eps = prioritized_replay_eps
         self.train_batch_size = train_batch_size

@@ -36,7 +36,9 @@ class _SyncOptimizer(PolicyOptimizer):
         super().__init__(workers)
         if workers.remote_workers:
             raise NotImplementedError(
-                "remote rollout workers are not ported yet")
+                "remote rollout workers in the synchronous optimizers "
+                "are not ported yet (ROADMAP Queue A item A6, after "
+                "A6b); IMPALA's async optimizer runs them")
         self.train_batch_size = train_batch_size
         self.learner_stats = {}
 

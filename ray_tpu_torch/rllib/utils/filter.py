@@ -3,7 +3,7 @@
 The port's own copy of `ray_tpu/rllib/utils/filter.py` (numpy only).
 Parity: `rllib/utils/filter.py` — `NoFilter`, `MeanStdFilter` (running
 mean/std normalization with a shareable delta buffer so distributed workers
-can merge statistics). `FilterManager` waits for remote workers.
+can merge statistics), and `rllib/utils/filter_manager.py`'s synchronize.
 """
 
 from __future__ import annotations
@@ -154,3 +154,23 @@ def get_filter(name: str, shape) -> Filter:
     if name == "MeanStdFilter":
         return MeanStdFilter(shape)
     raise ValueError(f"unknown filter {name!r}")
+
+
+class FilterManager:
+    """Parity: `rllib/utils/filter_manager.py:14` — pull remote workers'
+    filter deltas, merge into the local filter, push merged state back."""
+
+    @staticmethod
+    def synchronize(local_filter, remote_workers, get_ref, sync_call):
+        """Generic form: `get_ref(worker)` returns a ref to
+        worker.get_filters(flush_after=True); `sync_call(worker, f)` pushes
+        the merged filter."""
+        import ray_tpu_torch
+        remote_filters = ray_tpu_torch.get(
+            [get_ref(w) for w in remote_workers])
+        for f in remote_filters:
+            local_filter.apply_changes(f, with_buffer=False)
+        serialized = local_filter.as_serializable()
+        serialized.clear_buffer()
+        for w in remote_workers:
+            sync_call(w, serialized)

@@ -254,12 +254,15 @@ def test_validate_config():
     with pytest.raises(ValueError, match="sgd_minibatch_size must be a "
                                          "multiple"):
         IMPALATrainer(config=_cartpole_config(sgd_minibatch_size=30))
-    for over in ({"num_workers": 2},
-                 # Inline actors are ported (Sebulba device rollouts);
-                 # their host-sampler variant is not yet.
-                 {"num_inline_actors": 1, "device_rollouts": False}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            IMPALATrainer(config=_cartpole_config(**over))
+    # Remote workers are ported on the local-mode runtime: without it
+    # they raise, as the reference's do without `ray_tpu.init()`.
+    with pytest.raises(RuntimeError, match=r"init\(local_mode=True\)"):
+        IMPALATrainer(config=_cartpole_config(num_workers=2))
+    # Inline actors are ported (Sebulba device rollouts); their
+    # host-sampler variant is not yet.
+    with pytest.raises(NotImplementedError, match="not ported"):
+        IMPALATrainer(config=_cartpole_config(
+            num_inline_actors=1, device_rollouts=False))
     # Anakin mode is ported: it raises the reference's error for workers.
     with pytest.raises(ValueError, match="anakin mode is fully "
                                          "device-resident"):

@@ -1,7 +1,9 @@
-"""The port stands alone: importing it loads no JAX and no `ray_tpu`,
-and asking for the card where there is none raises instead of falling
-back to the CPU. The import check runs in a fresh interpreter (this
-test process has JAX loaded by the JAX package's tests)."""
+"""The port stands alone: importing it, and training IMPALA with a
+remote worker on its local-mode runtime, loads no JAX, no `ray_tpu`, no
+`cloudpickle` and no `lz4`; asking for the card where there is none
+raises instead of falling back to the CPU. The import check runs in a
+fresh interpreter (this test process has JAX loaded by the JAX
+package's tests)."""
 
 import os
 import subprocess
@@ -13,7 +15,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_PROBE = """
+_BANNED = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "cloudpickle", "lz4")
+
+_PROBE = f"BANNED = {_BANNED!r}\n" + """
 import sys
 import ray_tpu_torch
 import ray_tpu_torch.rllib.agents.impala
@@ -43,6 +47,10 @@ from ray_tpu_torch.rllib.env.spaces import Box, Discrete
 import ray_tpu_torch.rllib.agents.sac
 import ray_tpu_torch.rllib.agents.sac.sac_policy
 import ray_tpu_torch.rllib.agents.registry
+import ray_tpu_torch._private.local_mode
+import ray_tpu_torch._private.weight_sync
+import ray_tpu_torch.rllib.utils.weight_broadcast
+import ray_tpu_torch.rllib.evaluation.worker_set
 from ray_tpu_torch.rllib.agents.registry import get_trainer_class
 get_trainer_class("SAC")
 from ray_tpu_torch.rllib.agents.sac import SACPolicy
@@ -59,9 +67,16 @@ make_batched_env("SpriteAtari-v0", 2, device_frame_stack=4, seed=0)
 env = ray_tpu_torch.rllib.env.device_env.DeviceSyntheticAtari()
 env.reset(2, seed=0, device="cpu")
 ray_tpu_torch.parallel.q8_check.check_encode(2, seed=0, device="cpu")
-banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "ray_tpu"))
+ray_tpu_torch.init(local_mode=True)
+from ray_tpu_torch.rllib.agents.impala import IMPALATrainer
+t = IMPALATrainer(config={"env": "CartPole-v0", "num_workers": 1,
+                          "rollout_fragment_length": 10,
+                          "train_batch_size": 20, "min_iter_time_s": 0,
+                          "model": {"fcnet_hiddens": [8]}, "device": "cpu"})
+t.train()
+t.stop()
+ray_tpu_torch.shutdown()
+banned = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print("BANNED=" + ",".join(banned))
 """
 
@@ -114,26 +129,29 @@ def test_sac_without_a_card_raises(no_card):
         SACPolicy(Box(-1.0, 1.0, (3,)), Box(-1.0, 1.0, (1,)), {})
 
 
-_SMOKE_PROBE = """
+_SMOKE_PROBE = f"BANNED = {_BANNED!r}\n" + """
 import sys
+sys.argv[1:] = sys.argv[2:]
 import chip_smoke
 chip_smoke.port_kernels()
 import ray_tpu_torch.rllib.agents.dqn
 import ray_tpu_torch.rllib.agents.sac
-banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "ray_tpu"))
+import ray_tpu_torch.rllib.utils.weight_broadcast
+banned = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print("BANNED=" + ",".join(banned))
 sys.exit(chip_smoke.main())
 """
 
 
-def test_chip_smoke_loads_no_jax_and_needs_a_card(no_card):
-    """`chip_smoke.py` and the port modules it drives load no JAX and
-    no `ray_tpu`; without a card the script exits non-zero and prints
-    no result line."""
+@pytest.mark.parametrize("mode", [[], ["workers"]],
+                         ids=["all-phases", "workers"])
+def test_chip_smoke_loads_no_jax_and_needs_a_card(no_card, mode):
+    """`chip_smoke.py` and the port modules it drives load no JAX, no
+    `ray_tpu`, no `cloudpickle` and no `lz4`; without a card the script
+    exits non-zero and prints no result line (with no argument and in
+    its `workers` mode)."""
     out = subprocess.run(
-        [sys.executable, "-c", _SMOKE_PROBE], cwd=REPO,
+        [sys.executable, "-c", _SMOKE_PROBE, "--", *mode], cwd=REPO,
         capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=REPO))
     assert "BANNED=\n" in out.stdout, out.stdout + out.stderr
