@@ -6,8 +6,9 @@
     python3 chip_smoke.py dqn   # phase 9 alone (K8 built alone)
     python3 chip_smoke.py sac   # phase 10 with K9's part of phase 2
     python3 chip_smoke.py workers  # phase 11 alone (K1 and K2 built alone)
+    python3 chip_smoke.py procs    # phase 12 alone (K1 and K2 built alone)
 
-Eleven phases, any failure exits non-zero (no phase is caught, nothing
+Twelve phases, any failure exits non-zero (no phase is caught, nothing
 falls back to the CPU):
 
 1. Build: the card's name and power limit, then every hand-written
@@ -138,6 +139,25 @@ falls back to the CPU):
    a full and of a delta sync, the encode and apply (decode) times and
    the learner's `get_weights` time, beside the card's name and power
    limit.
+12. Rollout workers in processes of their own: phase 11's cell on
+   `ray_tpu_torch.init(num_cpus=4)`, the multi-process runtime, with
+   `weight_sync_codec: "auto"` (q8_delta there), 3 iterations and one
+   more profiled. Each worker is a process other than this one, with
+   its own CUDA context, which loads the kernels this process built;
+   samples and weight payloads cross processes through the shared-
+   memory object store. Launch counts set to 0 before the trainer is
+   built: V-trace once per update in this process, the sampling kernel
+   once per env step of each worker, counted in the worker's own
+   process (read through `RolloutWorker.apply`) and never in this one.
+   No stale fallback; after the last sync each worker holds the
+   broadcaster's receiver-view base bit for bit. No process holds
+   `jax`, `cloudpickle` or `ray_tpu`; after `shutdown` no worker
+   process, no shared-memory file and no session directory is left. It
+   prints env steps/s past the first iteration beside phase 11's, the
+   bytes of a full and of a delta sync, the encode, decode and
+   `get_weights` times, the store's bytes at the end, the size of
+   `/dev/shm` and the learner's device idle share over the profiled
+   iteration.
 
 Phase 2 also holds the two env kernels byte for byte against their
 plain versions (reset and step, both episode boundaries, CartPole near
@@ -361,6 +381,15 @@ WORKERS_NUM, WORKERS_ITERS = 2, 3
 WORKERS_CONFIG = dict(TRAINER_CONFIG, num_workers=WORKERS_NUM,
                       num_envs_per_worker=NUM_ENVS // WORKERS_NUM,
                       weight_sync_codec="q8_delta")
+
+# Phase 12: phase 11's cell on the multi-process runtime: each remote
+# worker a process of its own, fed "auto" (q8-delta) weight syncs
+# through the object store; one more iteration is profiled.
+PROCS_NUM, PROCS_ITERS = 2, 3
+PROCS_CONFIG = dict(TRAINER_CONFIG, num_workers=PROCS_NUM,
+                    num_envs_per_worker=NUM_ENVS // PROCS_NUM,
+                    weight_sync_codec="auto")
+BANNED_MODULES = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "cloudpickle")
 
 # Phase 6: phase 3's configuration on a world of 2 ranks (16 envs each).
 DP_RANKS = 2
@@ -3189,6 +3218,237 @@ def _run_workers(card):
     return launches, summary
 
 
+# ----------------------------------------------------------------------
+# phase 12: rollout workers in processes of their own
+# ----------------------------------------------------------------------
+def banned_modules():
+    """The modules of JAX, the JAX package and cloudpickle this process
+    has imported."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in BANNED_MODULES)
+
+
+def worker_probe(worker):
+    """Runs in a rollout worker's process (`RolloutWorker.apply`; the
+    workers import this file as the module `chip_smoke`): its pid, CUDA
+    state, banned modules, kernel launch counts and weight applies."""
+    import torch
+    from ray_tpu_torch._private import metrics
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import vtrace
+    counters = metrics.snapshot()["counters"]
+    return {"pid": os.getpid(),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "device": str(worker.policy.device),
+            "modules": banned_modules(),
+            "categorical": distributions.CATEGORICAL_KERNEL.launches,
+            "vtrace": vtrace.VTRACE_KERNEL.launches,
+            "applies": counters.get("weight_sync_applied", 0),
+            "apply_ms_sum": counters.get("weight_apply_ms_sum", 0.0)}
+
+
+def _gone(pid, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def run_procs(card, phase11=None):
+    """Phase 12: `IMPALATrainer` with 2 rollout workers x 16 envs, each a
+    process of its own, on `ray_tpu_torch.init(num_cpus=4)`. `phase11`:
+    phase 11's summary in this call, for the side-by-side line.
+    -> (K1's and K2's launches, the summary)."""
+    import glob
+    import numpy as np
+    import torch
+    import ray_tpu_torch
+    import chip_smoke as module  # by reference for the workers' pickle
+    from ray_tpu_torch._private import metrics, node, object_store
+    from ray_tpu_torch._private import weight_sync
+    from ray_tpu_torch.models import distributions
+    from ray_tpu_torch.rllib.agents.impala import IMPALATrainer, vtrace
+
+    shm_bytes = object_store.shm_size()
+    log(f"  {object_store.SHM_DIR}: {shm_bytes} bytes; the store's "
+        f"capacity {object_store.store_capacity()} bytes")
+    gauges = {"weight_sync_ms": []}
+    set_gauge = metrics.set_gauge
+
+    def recording_set_gauge(name, value):
+        if name in gauges:
+            gauges[name].append(value)
+        set_gauge(name, value)
+
+    ray_tpu_torch.init(num_cpus=4)
+    session = node.current_node()
+    prefix, session_dir = session.runtime.shm.prefix, session.session_dir
+    counters0 = metrics.snapshot()["counters"]
+    metrics.set_gauge = recording_set_gauge
+    vtrace.VTRACE_KERNEL.launches = 0
+    distributions.CATEGORICAL_KERNEL.launches = 0
+    trainer, pids = None, []
+    try:
+        t0 = time.perf_counter()
+        trainer = IMPALATrainer(config=dict(PROCS_CONFIG))
+        pids = session.head.worker_pids()
+        log(f"  trainer and {PROCS_NUM} worker processes {pids} built and "
+            f"primed in {time.perf_counter() - t0:.2f} s")
+        learner = trainer.workers.local_worker
+        get_weights = learner.get_weights
+        get_weights_s = []
+
+        def timed_get_weights():
+            t = time.perf_counter()
+            out = get_weights()
+            get_weights_s.append(time.perf_counter() - t)
+            return out
+
+        learner.get_weights = timed_get_weights
+        opt = trainer.optimizer
+        bc = opt.broadcaster
+        iters = []
+        for i in range(PROCS_ITERS):
+            t0 = time.perf_counter()
+            result = trainer.train()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = result["timesteps_this_iter"]
+            loss = result["info"]["learner"]["total_loss"]
+            iters.append({"s": dt, "steps": steps})
+            log(f"  iter {i}: {dt:.3f} s, {steps} env steps, "
+                f"{steps / dt:.1f} env steps/s, sync version {bc.version}, "
+                f"total_loss {loss:.4f}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"non-finite loss at iter {i}")
+        result, prof = profile_iteration(trainer)
+        log(f"  profiled iteration: {json.dumps(prof)}")
+        stats = opt.stats()
+        counters = metrics.snapshot()["counters"]
+        syncs = {codec: counters.get(f"weight_sync_codec.{codec}", 0)
+                 - counters0.get(f"weight_sync_codec.{codec}", 0)
+                 for codec in ("full", "q8_delta")}
+        if stats["weight_sync_codec"] != "q8_delta" or syncs["full"] < 1 \
+                or syncs["q8_delta"] < 1:
+            raise AssertionError(
+                f"codec {stats['weight_sync_codec']}, syncs {syncs}")
+        if stats["num_weight_sync_stale_fallbacks"] != 0:
+            raise AssertionError(
+                f"{stats['num_weight_sync_stale_fallbacks']} stale "
+                "fallbacks")
+        # The sample tasks still in flight finish (their env steps
+        # launched K2 too), then each worker gets the last sync.
+        in_flight = sum(b.count for b in ray_tpu_torch.get(
+            opt.sample_tasks.pending()))
+        for w in trainer.workers.remote_workers:
+            bc.sync(w)
+            bc.drain_acks()
+            held = ray_tpu_torch.get(w.weight_sync_version.remote())
+            got = weight_sync.flatten_f32(
+                ray_tpu_torch.get(w.get_weights.remote()))[0]
+            if held != bc.version or \
+                    got.tobytes() != bc.encoder.base.tobytes():
+                raise AssertionError(
+                    f"worker at version {held} of {bc.version} does not "
+                    "hold the receiver-view base")
+        probes = [ray_tpu_torch.get(w.apply.remote(module.worker_probe))
+                  for w in trainer.workers.remote_workers]
+        log(f"  workers: {json.dumps(probes)}")
+        worker_pids = {p["pid"] for p in probes}
+        if len(worker_pids) != PROCS_NUM or os.getpid() in worker_pids:
+            raise AssertionError(f"worker pids {worker_pids}, driver "
+                                 f"{os.getpid()}")
+        for p in probes:
+            if not p["cuda_initialized"] or p["device"] != "cuda:0" \
+                    or p["modules"] or p["vtrace"] or not p["categorical"]:
+                raise AssertionError(f"worker process: {p}")
+        if banned_modules():
+            raise AssertionError(f"driver holds {banned_modules()}")
+        full_bytes = bc.encoder.full_payloads()[0].nbytes
+        payloads = bc.payloads()
+        delta_bytes = sum(p.nbytes for p in payloads)
+        if payloads[0].codec != "q8_delta":
+            raise AssertionError(f"last sync {payloads[0].codec}")
+        store_bytes = session.runtime.shm.used_bytes()
+        owned = session.runtime.owned_bytes()
+    finally:
+        metrics.set_gauge = set_gauge
+        if trainer is not None:
+            trainer.stop()
+        ray_tpu_torch.shutdown()
+    left = [pid for pid in pids if not _gone(pid)]
+    if left or glob.glob(prefix + "*") or os.path.exists(session_dir):
+        raise AssertionError(
+            f"after shutdown: processes {left}, shared-memory files "
+            f"{glob.glob(prefix + '*')}, session directory "
+            f"{os.path.exists(session_dir)}")
+    policy = trainer.get_policy()
+    launches = {"vtrace": vtrace.VTRACE_KERNEL.launches,
+                "categorical": sum(p["categorical"] for p in probes)}
+    env_steps = (result["num_steps_sampled"] + in_flight) \
+        // PROCS_CONFIG["num_envs_per_worker"]
+    if distributions.CATEGORICAL_KERNEL.launches != 0 \
+            or launches["categorical"] != env_steps:
+        raise AssertionError(
+            f"sampling kernel launched {launches['categorical']} times in "
+            f"the workers ({distributions.CATEGORICAL_KERNEL.launches} in "
+            f"the driver) for {env_steps} env steps of the workers")
+    updates = policy.global_timestep // PROCS_CONFIG["train_batch_size"]
+    if launches["vtrace"] != updates or updates <= 0:
+        raise AssertionError(
+            f"vtrace kernel launched {launches['vtrace']} times for "
+            f"{updates} updates")
+    steady = iters[1:]  # the first iteration includes cuDNN's warm-up
+    encode_ms = gauges["weight_sync_ms"]
+    applies = sum(p["applies"] for p in probes)
+    summary = {
+        "card": card,
+        "iter_s": [r["s"] for r in iters],
+        "env_steps_per_s": sum(r["steps"] for r in iters)
+        / sum(r["s"] for r in iters),
+        "env_steps_per_s_steady": sum(r["steps"] for r in steady)
+        / sum(r["s"] for r in steady),
+        "phase11_env_steps_per_s_steady":
+        phase11["env_steps_per_s_steady"] if phase11 else "not run",
+        "num_steps_sampled": result["num_steps_sampled"],
+        "num_steps_trained": result["num_steps_trained"],
+        "updates": updates,
+        "syncs": syncs,
+        "sync_version": bc.version,
+        "bytes_full_sync": full_bytes,
+        "bytes_delta_sync": delta_bytes,
+        "delta_ratio": full_bytes / delta_bytes,
+        "encode_ms_full": encode_ms[0],
+        "encode_ms_delta_mean": float(np.mean(encode_ms[1:])),
+        "decode_ms_mean": sum(p["apply_ms_sum"] for p in probes)
+        / max(1, applies),
+        "decodes": applies,
+        "learner_get_weights_ms_mean": 1e3 * float(np.mean(get_weights_s)),
+        "store_bytes_end": store_bytes,
+        "owned_objects_end": owned[0],
+        "shm_bytes": shm_bytes,
+        "device_idle_share": prof["device_idle_share"],
+        "profiled_wall_ms": prof["wall_ms"],
+        "launches": launches,
+    }
+    log(f"  phase 12 on {card}: {summary['env_steps_per_s_steady']:.1f} "
+        f"env steps/s past the first iteration (phase 11 in this call: "
+        f"{summary['phase11_env_steps_per_s_steady']}); sync bytes full "
+        f"{full_bytes}, delta {delta_bytes}; encode ms full "
+        f"{encode_ms[0]:.3f}, delta {summary['encode_ms_delta_mean']:.3f}; "
+        f"decode ms {summary['decode_ms_mean']:.3f} (workers' own "
+        f"processes); learner get_weights ms "
+        f"{summary['learner_get_weights_ms_mean']:.3f}; store bytes at the "
+        f"end {store_bytes}; {object_store.SHM_DIR} {shm_bytes} bytes; "
+        f"learner idle share {summary['device_idle_share']}")
+    log(f"  procs summary: {json.dumps(summary)}")
+    return launches, summary
+
+
 def log_build(kernels):
     """Build `kernels` (one nvcc per source, all at once) and log ptxas's
     register/spill lines."""
@@ -3257,6 +3517,13 @@ def main():
                               distributions.CATEGORICAL_KERNEL])
         log("phase 11 alone: IMPALATrainer, remote rollout workers")
         log(json.dumps({"launches": run_workers(card)[0]}))
+        return 0
+    if sys.argv[1:] == ["procs"]:
+        # Phase 12 alone (K1 and K2 built alone).
+        cuda_build.build_all([vtrace.VTRACE_KERNEL,
+                              distributions.CATEGORICAL_KERNEL])
+        log("phase 12 alone: IMPALATrainer, rollout workers in processes")
+        log(json.dumps({"launches": run_procs(card)[0]}))
         return 0
     if sys.argv[1:] == ["dqn"]:
         # Phase 9 alone: its host-bound rates without phases 1-8 before.
@@ -3434,9 +3701,16 @@ def main():
 
     log("phase 11: IMPALATrainer at full width, 2 remote rollout workers "
         "on the local-mode runtime (q8-delta weight syncs)")
-    workers_launches, _ = run_workers(card)
+    workers_launches, workers_summary = run_workers(card)
     for name in ("vtrace", "categorical"):
         launches[name] += workers_launches[name]
+
+    log("phase 12: IMPALATrainer at full width, 2 rollout workers in "
+        "processes of their own (multi-process runtime, q8-delta syncs "
+        "through the object store)")
+    procs_launches, _ = run_procs(card, workers_summary)
+    for name in ("vtrace", "categorical"):
+        launches[name] += procs_launches[name]
 
     entries = [
         {"name": "vtrace", "route": "cuda",

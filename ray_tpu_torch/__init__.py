@@ -20,16 +20,24 @@ Entry points run on the card unless the caller passes
     trainer = IMPALATrainer(config={"env": "SyntheticAtari-v0"})
     result = trainer.train()
 
-The runtime API (`init`, `remote`, `get`, `put`, `wait`, `kill`) runs
-in local mode only: tasks and actor calls run inline in the driver's
-process (`_private/local_mode.py`). IMPALA's remote rollout workers run
-on it, fed versioned weight syncs:
+The runtime API (`init`, `remote`, `get`, `put`, `wait`, `kill`):
+`init()` starts the multi-process runtime (`_private/node.py`): the
+head runs as threads of the driver, tasks and actors run in worker
+processes of their own, and values move through the node's shared-memory
+object store. Functions and classes travel by reference (plain
+`pickle`), so a remote function or class must be importable: defined at
+module level in a module on `sys.path`. `init(local_mode=True)` runs
+every task and actor call inline in the driver's process instead
+(`_private/local_mode.py`). IMPALA's remote rollout workers run on
+either, fed versioned weight syncs (q8 deltas on the multi-process
+runtime):
 
     import ray_tpu_torch
-    ray_tpu_torch.init(local_mode=True)
+    ray_tpu_torch.init(num_cpus=4)
     trainer = IMPALATrainer(config={"env": "SyntheticAtari-v0",
                                     "num_workers": 2})
     trainer.train()
+    trainer.stop()
     ray_tpu_torch.shutdown()
 """
 
@@ -42,37 +50,53 @@ from . import exceptions
 from ._private import worker_state as _ws
 from ._private.object_ref import ObjectRef
 from .actor import ActorClass, ActorHandle, get_actor
-from .device import resolve_device  # noqa: F401
-from .exceptions import (ActorDiedError, GetTimeoutError, RayError,
-                         TaskError)
+from .exceptions import (ActorDiedError, GetTimeoutError, ObjectLostError,
+                         RayError, TaskError, WorkerCrashedError)
 from .remote_function import RemoteFunction
 
 __version__ = "0.1.0"
+
+
+def resolve_device(spec=None):
+    """Config value -> `torch.device` (`device.resolve_device`; imported
+    on call, so a worker process that runs no torch code imports no
+    torch)."""
+    from .device import resolve_device as _resolve
+    return _resolve(spec)
 
 
 def init(num_cpus: _Optional[float] = None,
          num_gpus: _Optional[float] = None,
          resources: _Optional[dict] = None,
          local_mode: bool = False):
-    """Start the runtime (parity: `ray_tpu.init`). Only local mode is
-    ported: every task and actor call runs inline in this process."""
-    if not local_mode:
-        raise NotImplementedError(
-            "ray_tpu_torch.init() runs in local mode only "
-            "(init(local_mode=True)); the multi-process runtime is "
-            "ROADMAP Queue A item A6b")
+    """Start the runtime (parity: `ray_tpu.init`): the multi-process
+    runtime, with `num_cpus` (default: the host's cores, at least 4),
+    `num_gpus` (default: the CUDA devices) and custom `resources`; or,
+    with `local_mode=True`, the local-mode runtime, which runs every task
+    and actor call inline in this process."""
     if _ws.get_runtime_or_none() is not None:
         raise RuntimeError("ray_tpu_torch.init() called twice; call "
                            "ray_tpu_torch.shutdown() first")
-    from ._private.local_mode import LocalRuntime
-    rt = LocalRuntime()
-    _ws.set_runtime(rt, _ws.LOCAL_MODE)
-    return rt
+    if local_mode:
+        from ._private.local_mode import LocalRuntime
+        rt = LocalRuntime()
+        _ws.set_runtime(rt, _ws.LOCAL_MODE)
+        return rt
+    from ._private import node
+    return node.init(resources=resources, num_cpus=num_cpus,
+                     num_gpus=num_gpus)
 
 
 def shutdown():
-    """Stop the runtime: its objects, actors and task records go."""
+    """Stop the runtime. Local mode drops its objects, actors and task
+    records; the multi-process runtime also stops every worker process
+    and leaves no shared-memory file and no session directory behind."""
     rt = _ws.get_runtime_or_none()
+    if _ws.mode() == _ws.SCRIPT_MODE:
+        from ._private import node
+        _ws.clear()
+        node.shutdown()
+        return
     if rt is not None:
         rt.shutdown()
     _ws.clear()
@@ -80,6 +104,19 @@ def shutdown():
 
 def is_initialized() -> bool:
     return _ws.get_runtime_or_none() is not None
+
+
+def cluster_resources() -> dict:
+    """The node's total resources (multi-process runtime)."""
+    return _ws.get_runtime().cluster_info()["nodes"][0]["total_resources"]
+
+
+def free(refs):
+    """Free objects this process owns now, whoever holds a ref (parity:
+    `ray.internal.free`; multi-process runtime)."""
+    if isinstance(refs, ObjectRef):
+        refs = [refs]
+    _ws.get_runtime().free(refs)
 
 
 def put(value) -> ObjectRef:
@@ -130,14 +167,14 @@ def task_summary():
 def remote(*args, **kwargs):
     """The `@ray_tpu_torch.remote` decorator for functions and classes.
 
-    Options: num_returns, num_cpus, num_gpus, resources, max_retries
-    (functions); num_cpus, num_gpus, resources, max_restarts,
-    max_concurrency (classes).
+    Options: num_returns, num_cpus, num_gpus, resources, max_retries,
+    name (functions); num_cpus, num_gpus, resources, max_restarts,
+    max_concurrency, name (classes).
     """
     fn_opts = {"num_returns", "num_cpus", "num_gpus", "resources",
-               "max_retries"}
+               "max_retries", "name"}
     cls_opts = {"num_cpus", "num_gpus", "resources", "max_restarts",
-                "max_concurrency"}
+                "max_concurrency", "name"}
 
     def make(target):
         is_class = _inspect.isclass(target)
@@ -153,14 +190,16 @@ def remote(*args, **kwargs):
                 num_gpus=kwargs.get("num_gpus"),
                 resources=kwargs.get("resources"),
                 max_restarts=kwargs.get("max_restarts", 0),
-                max_concurrency=kwargs.get("max_concurrency"))
+                max_concurrency=kwargs.get("max_concurrency"),
+                name=kwargs.get("name"))
         return RemoteFunction(
             target,
             num_returns=kwargs.get("num_returns", 1),
             num_cpus=kwargs.get("num_cpus"),
             num_gpus=kwargs.get("num_gpus"),
             resources=kwargs.get("resources"),
-            max_retries=kwargs.get("max_retries", 3))
+            max_retries=kwargs.get("max_retries", 3),
+            name=kwargs.get("name"))
 
     if len(args) == 1 and callable(args[0]) and not kwargs:
         return make(args[0])
@@ -171,8 +210,9 @@ def remote(*args, **kwargs):
 
 __all__ = [
     "ActorClass", "ActorDiedError", "ActorHandle", "GetTimeoutError",
-    "ObjectRef", "RayError", "RemoteFunction", "TaskError", "exceptions",
-    "get", "get_actor", "init", "is_initialized", "kill",
+    "ObjectLostError", "ObjectRef", "RayError", "RemoteFunction",
+    "TaskError", "WorkerCrashedError", "cluster_resources", "exceptions",
+    "free", "get", "get_actor", "init", "is_initialized", "kill",
     "put", "remote", "resolve_device", "shutdown", "task_summary", "tasks",
     "wait",
 ]

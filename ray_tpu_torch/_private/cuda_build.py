@@ -14,6 +14,9 @@ building at once never load a half-written library.
 Nothing here runs at import: `nvcc` is looked up and started only when
 a wrapper first launches its kernel on a CUDA tensor, or when
 `build_all` is called (it starts one `nvcc` per source, all at once).
+A worker process of the multi-process runtime (`WORKER_ENV` set) builds
+nothing: it loads the libraries its driver built, and a library that is
+not there fails the worker's task.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ BUILD_DIR = _PKG / "_build"
 ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Set by the runtime's head in every worker process it starts.
+WORKER_ENV = "RAY_TPU_TORCH_WORKER"
 # Serializes first-use builds and loads: two kernels of one source, first
 # launched from two threads at once, run one nvcc between them.
 _BUILD_LOCK = threading.Lock()
@@ -97,6 +102,11 @@ class CudaKernel:
         """Start `nvcc` for this library; None if it is already built."""
         if self.library_path().exists():
             return None
+        if os.environ.get(WORKER_ENV):
+            raise RuntimeError(
+                f"CUDA kernel {self.name}: {self.library_path().name} is "
+                "not built; a worker process loads the kernel libraries "
+                "its driver built and builds none itself")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library_path().with_suffix(f".tmp{os.getpid()}.so")
         proc = subprocess.Popen(

@@ -1,8 +1,10 @@
 """Binary identifiers for tasks, objects and actors.
 
 The port's own copy of `ray_tpu/_private/ids.py`, trimmed to the ids
-the local-mode runtime makes: a 16-byte random unique part, and an
-object id that is its task's id plus a 4-byte return index.
+the port's runtimes make: a 16-byte random unique part, and an object
+id that is its task's id plus a 4-byte return index. An id pickles as
+its bytes (`__reduce__`), so its hash is recomputed in the receiving
+process (`hash(bytes)` differs from process to process).
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class BaseID:
     def __repr__(self):
         return f"{type(self).__name__}({self._bytes.hex()[:16]})"
 
+    def __reduce__(self):
+        return (type(self), (self._bytes,))
+
 
 class ActorID(BaseID):
     @classmethod
@@ -56,3 +61,6 @@ class ObjectID(BaseID):
     def generate(cls) -> "ObjectID":
         """A put() object: random task part + index 0."""
         return TaskID.generate().object_id(0)
+
+    def task_id(self) -> TaskID:
+        return TaskID(self._bytes[:_UNIQUE_LEN])

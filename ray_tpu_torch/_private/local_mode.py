@@ -73,6 +73,10 @@ class LocalRuntime:
         # Every call has run by the time its ref exists.
         return refs[:num_returns], refs[num_returns:]
 
+    def free(self, refs) -> None:
+        for r in refs:
+            self._release(r.id)
+
     def _release(self, oid: ObjectID) -> None:
         self._objects.pop(oid, None)
         self._errors.pop(oid, None)

@@ -51,13 +51,17 @@ CODEC_Q8_DELTA = "q8_delta"
 def resolve_codec(codec: Optional[str]) -> str:
     """Map a config value ("auto" / None / explicit) to a codec name.
 
-    The port's only runtime is local mode, which hands payloads over by
-    reference: no byte crosses a wire, so a q8 delta saves nothing and
-    costs a host encode and exact weights. "auto" is therefore the full
-    codec until the port has a multi-process runtime; q8_delta is an
-    explicit choice."""
+    On the multi-process runtime the payloads cross processes through
+    the object store, and "auto" is q8_delta, the JAX package's default
+    (`ray_tpu/_private/config.py:79`). The local-mode runtime (or none)
+    hands payloads over by reference: no byte is copied, so a q8 delta
+    saves nothing and costs a host encode and exact weights, and "auto"
+    is the full codec there."""
     if codec in (None, "auto"):
-        codec = CODEC_FULL
+        from . import worker_state
+        codec = CODEC_Q8_DELTA if worker_state.mode() in (
+            worker_state.SCRIPT_MODE, worker_state.WORKER_MODE) \
+            else CODEC_FULL
     if codec not in (CODEC_FULL, CODEC_Q8_DELTA):
         raise ValueError(
             f"unknown weight codec {codec!r}; known: "

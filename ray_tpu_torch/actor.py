@@ -1,11 +1,12 @@
 """Actor API: `@ray_tpu_torch.remote` classes.
 
-The port's own copy of `ray_tpu/actor.py` for the local-mode runtime:
-`ActorClass` with `.remote()` and `.options()`, `ActorMethod`,
-`ActorHandle` and named actors (`get_actor`). The class object itself
-is exported (the reference pickles it); per-method return counts,
-restarts, checkpoints and asyncio actors belong to the multi-process
-runtime.
+The port's own copy of `ray_tpu/actor.py`, for both of the port's
+runtimes: `ActorClass` with `.remote()` and `.options()`, `ActorMethod`,
+`ActorHandle` and named actors (`get_actor`). The class is exported to
+the runtime's function table: as the object itself in local mode, by
+reference (plain pickle) on the multi-process runtime, where each actor
+runs in a worker process of its own. Per-method return counts,
+checkpoints and asyncio actors are not ported.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ class ActorClass:
                 {k: float(v) for k, v in resources.items()})
         self._max_restarts = max_restarts
         self._max_concurrency = max_concurrency
+        self._name = name or ""  # the default actor name
         self._key: Optional[str] = None
         self.__doc__ = getattr(cls, "__doc__", None)
 
@@ -101,7 +103,7 @@ class ActorClass:
             max_restarts=max_restarts if max_restarts is not None
             else self._max_restarts,
             max_concurrency=max_concurrency or self._max_concurrency or 1,
-            name=name, env_vars=env_vars)
+            name=name or self._name, env_vars=env_vars)
         return ActorHandle(actor_id, self._class_name)
 
     def options(self, name=None, max_concurrency=None, max_restarts=None,

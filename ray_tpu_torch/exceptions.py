@@ -1,9 +1,12 @@
 """Public exception types of the port's runtime.
 
 The port's own copy of `ray_tpu/exceptions.py`, trimmed to what the
-local-mode runtime raises: `TaskError` (a task's exception, re-raised
-by `get`), `ActorDiedError` (a call on a killed actor) and
-`GetTimeoutError`.
+port's runtimes raise: `TaskError` (a task's exception, re-raised by
+`get`), `ActorDiedError` (a call on a killed or dead actor),
+`WorkerCrashedError` (a task's worker process died),
+`ObjectLostError`, `ObjectStoreFullError` and `GetTimeoutError`. An
+exception crosses processes by plain pickle: its attributes ride in its
+`__dict__`, which unpickling restores.
 """
 
 from __future__ import annotations
@@ -34,9 +37,17 @@ class TaskError(RayError):
             msg += "\n\n--- remote traceback ---\n" + remote_tb
         super().__init__(msg)
 
+    def __reduce__(self):
+        # Rebuild through __init__, so the message is the original one.
+        return (type(self), (self.cause, self.remote_tb, self.task_desc))
+
     @classmethod
     def from_exception(cls, e: BaseException, task_desc: str = ""):
         return cls(e, traceback.format_exc(), task_desc)
+
+
+class WorkerCrashedError(RayError):
+    """The worker process executing the task died unexpectedly."""
 
 
 class ActorDiedError(RayError):
@@ -48,6 +59,18 @@ class ActorDiedError(RayError):
         super().__init__(
             f"actor {actor_id_hex[:16]} died"
             + (f": {reason}" if reason else ""))
+
+    def __reduce__(self):
+        return (type(self), (self.actor_id_hex, self.reason))
+
+
+class ObjectLostError(RayError):
+    """The object's value was lost (its owner died or freed it)."""
+
+
+class ObjectStoreFullError(RayError):
+    """The shared object store is at capacity: the object does not fit
+    beside the objects still referenced."""
 
 
 class GetTimeoutError(RayError, TimeoutError):

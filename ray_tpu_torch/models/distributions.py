@@ -801,6 +801,8 @@ def squashed_gaussian_sample_logp(x: torch.Tensor,
 class Categorical:
     """inputs: logits (..., n)."""
 
+    STEP_KERNEL = CATEGORICAL_KERNEL  # what `record_step` launches
+
     def __init__(self, inputs: torch.Tensor):
         self.inputs = inputs
 
@@ -879,6 +881,8 @@ class DiagGaussian:
     """inputs: concat([mean, log_std], -1) over a Box of dim d. `mean`,
     `log_std` and `std` are computed at their first read (`logp`,
     `entropy`, `kl`): sampling reads none of them."""
+
+    STEP_KERNEL = DIAG_GAUSSIAN_KERNEL  # what `record_step` launches
 
     def __init__(self, inputs: torch.Tensor):
         self.inputs = inputs

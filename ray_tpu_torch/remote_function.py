@@ -1,9 +1,10 @@
 """`@ray_tpu_torch.remote` functions.
 
-The port's own copy of `ray_tpu/remote_function.py` for the local-mode
-runtime: the function object itself is exported under a key made from
-its name and identity (the reference hashes its cloudpickle bytes),
-with `.remote()` and `.options()`.
+The port's own copy of `ray_tpu/remote_function.py`, for both of the
+port's runtimes: the function is exported under a key made from its
+name and identity (the reference hashes its cloudpickle bytes), as the
+object itself in local mode and by reference (plain pickle) on the
+multi-process runtime, with `.remote()` and `.options()`.
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ import torch
 
 from ....models.catalog import observation_shape, resolve_compute_dtype
 from ....models.distributions import ActionRecord, ThreadRecords
-from ....models.eps_greedy import eps_greedy
+from ....models.eps_greedy import EPS_GREEDY_KERNEL, eps_greedy
 from ....models.networks import QNetwork
 from ... import sample_batch as sb
 from ...policy.torch_policy import (TorchPolicy, host_state_dict,
@@ -200,6 +200,9 @@ class DQNPolicy(TorchPolicy):
     # -- exploration -----------------------------------------------------
     def set_epsilon(self, epsilon: float) -> None:
         self.cur_epsilon = float(epsilon)
+
+    def action_kernels(self) -> list:
+        return [EPS_GREEDY_KERNEL]
 
     def compute_actions(self, obs_batch, state_batches=None, explore=True,
                         prev_action_batch=None, prev_reward_batch=None):

@@ -172,4 +172,4 @@ def vtrace_loss(policy, model, batch):
 # loss, as the implicit fp32 psum gives it on one device or a mesh.
 VTraceTorchPolicy = build_torch_policy(
     "VTraceTorchPolicy", vtrace_loss, loss_reduction="sum",
-    get_default_config=lambda: DEFAULT_CONFIG)
+    get_default_config=lambda: DEFAULT_CONFIG, module=__name__)

@@ -98,7 +98,7 @@ def explained_variance(y, pred):
 # the summed gradient by the world size.
 PPOTorchPolicy = build_torch_policy(
     "PPOTorchPolicy", ppo_loss, loss_reduction="mean",
-    get_default_config=lambda: DEFAULT_CONFIG)
+    get_default_config=lambda: DEFAULT_CONFIG, module=__name__)
 
 
 def make_ppo_optimizer(workers, config):

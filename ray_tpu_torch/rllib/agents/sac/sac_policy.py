@@ -46,7 +46,8 @@ import torch
 
 from ....device import resolve_device
 from ....models import catalog
-from ....models.distributions import (ActionRecord, SquashedTail,
+from ....models.distributions import (SQUASHED_GAUSSIAN_KERNEL,
+                                      ActionRecord, SquashedTail,
                                       ThreadRecords,
                                       squashed_gaussian_sample_logp)
 from ....models.networks import ContinuousQNetwork, StochasticActor
@@ -199,6 +200,9 @@ class SACPolicy(Policy):
                 * (1.0 - dev[sb.DONES])
 
     # ------------------------------------------------------------------
+    def action_kernels(self) -> list:
+        return [SQUASHED_GAUSSIAN_KERNEL]
+
     def compute_actions(self, obs_batch, state_batches=None, explore=True,
                         prev_action_batch=None, prev_reward_batch=None):
         if explore and self.global_timestep \

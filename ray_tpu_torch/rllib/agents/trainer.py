@@ -18,10 +18,10 @@ each train batch and exchanges gradients (`_make_learner_group`). With
 space, and episodes of inline (Sebulba) actors join the result. The
 evaluation worker is one local `RolloutWorker` that acts with
 `explore=False`, synced to the learner's weights and filters before
-each evaluation. Remote workers run on the local-mode runtime
-(`ray_tpu_torch.init(local_mode=True)`); worker-failure recovery,
-checkpoints and the cluster-metrics push wait for the multi-process
-runtime.
+each evaluation. Remote workers run on either runtime
+(`ray_tpu_torch.init()`, each worker a process of its own, or
+`init(local_mode=True)`); worker-failure recovery, checkpoints and the
+cluster-metrics push are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Optional
 from ...device import resolve_device
 from ...parallel.mesh import LearnerGroup
 from ...tune.trainable import Trainable
-from ..env.registry import make_env
+from ..env.registry import EnvCreator
 from ..evaluation.metrics import (collect_episodes, summarize_episodes,
                                   world_totals)
 from ..evaluation.rollout_worker import RolloutWorker
@@ -116,7 +116,8 @@ class Trainer(Trainable):
         if callable(env_name):
             self.env_creator = env_name
         elif env_name is not None:
-            self.env_creator = lambda cfg, _n=env_name: make_env(_n, cfg)
+            # Picklable: remote rollout workers get it by reference.
+            self.env_creator = EnvCreator(env_name)
         else:
             raise ValueError("config['env'] is required")
         k = merged.get("device_frame_stack") or 0

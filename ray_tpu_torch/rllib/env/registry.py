@@ -29,6 +29,23 @@ def make_env(name: str, env_config: dict = None):
         f"unknown env {name!r}; registered: {sorted(_REGISTRY)}")
 
 
+class EnvCreator:
+    """`creator(env_config) -> Env` for a registered env id. It carries
+    the id only and looks the env up in the registry of the process that
+    calls it, so it pickles by reference (plain pickle) to a remote
+    rollout worker, where the registry's own creators (lambdas) could
+    not go."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __call__(self, env_config: dict = None):
+        return make_env(self.name, env_config)
+
+    def __repr__(self):
+        return f"EnvCreator({self.name!r})"
+
+
 # -- batched (vectorized) envs ------------------------------------------
 # The Sebulba inline-actor path steps envs as a batch (see
 # `batched_env.py`). Envs with a natively-vectorized implementation

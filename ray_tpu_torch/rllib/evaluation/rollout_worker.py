@@ -3,14 +3,17 @@
 Counterpart of `ray_tpu/rllib/evaluation/rollout_worker.py` (parity:
 `rllib/evaluation/rollout_worker.py:55`), single-agent: builds env +
 policy + sampler; `sample`, `get/set_weights`, `get/sync_filters`,
-`ping`; `explore=False` makes a non-exploring (evaluation) worker.
-Built in the trainer's process as the local worker and, through
+`apply`, `ping`; `explore=False` makes a non-exploring (evaluation)
+worker. Built in the trainer's process as the local worker and, through
 `ray_tpu_torch.remote(RolloutWorker)`, as a remote worker
 (`WorkerSet`), whose `set_weights` receives the weight plane's
 versioned payloads. A worker builds its policy on the config's
 ``"device"`` like any other entry point: in local mode the remote
-workers share the learner's card. Offline I/O, remote envs, observation
-compression and policy maps wait for later slices.
+workers share the learner's process and card; on the multi-process
+runtime each is a process of its own with its own CUDA context, which
+loads the kernels its driver built. `sample` returns numpy columns
+only, so no torch tensor enters the object store. Offline I/O, remote
+envs, observation compression and policy maps wait for later slices.
 """
 
 from __future__ import annotations
@@ -119,8 +122,11 @@ class RolloutWorker:
                 self._weight_decoder = WeightSyncDecoder()
             t0 = time.perf_counter()
             decoded, status = self._weight_decoder.apply(weights)
-            metrics.set_gauge("weight_apply_ms",
-                              1e3 * (time.perf_counter() - t0))
+            apply_ms = 1e3 * (time.perf_counter() - t0)
+            metrics.set_gauge("weight_apply_ms", apply_ms)
+            # Sum and count: a worker process's mean decode time.
+            metrics.inc("weight_apply_ms_sum", apply_ms)
+            metrics.inc("weight_sync_applied")
             if status == "stale":
                 metrics.inc("weight_sync_stale_received")
             if decoded is None:
@@ -141,6 +147,12 @@ class RolloutWorker:
 
     def get_policy(self, policy_id: str = "default_policy"):
         return self.policy
+
+    def apply(self, fn, *args):
+        """`fn(self, *args)` in the worker's process (parity:
+        `RolloutWorker.apply`); on the multi-process runtime `fn` must be
+        importable (a module-level function)."""
+        return fn(self, *args)
 
     # -- filters (parity: FilterManager.synchronize) ---------------------
     def get_filters(self, flush_after: bool = False):

@@ -5,11 +5,13 @@ Counterpart of `ray_tpu/rllib/evaluation/worker_set.py` (parity:
 policy, on the trainer's device. On a rank of a data-parallel learner
 (`config["_learner_group"]`) it holds that rank's slice of
 `num_envs_per_worker`, by global env index. Remote workers are actors
-of `ray_tpu_torch.remote(RolloutWorker)` on the runtime that
-`ray_tpu_torch.init(local_mode=True)` started: they run in this
-process and build their policies on the config's ``"device"`` (the
-reference pins them to the CPU through `env_vars`, which its local mode
-ignores too). `sync_weights` broadcasts through the weight plane
+of `ray_tpu_torch.remote(RolloutWorker)`: in this process on the
+local-mode runtime, in worker processes of their own on the
+multi-process one. They build their policies on the config's
+``"device"`` (the reference pins them to the CPU through `env_vars`),
+and a worker process only loads the kernels its policy launches
+(`Policy.action_kernels`), which the driver builds before it starts
+the workers. `sync_weights` broadcasts through the weight plane
 (`utils/weight_broadcast.py`), `sync_filters` merges observation
 filters. Remote workers beside a data-parallel learner wait for ROADMAP
 Queue A item 8.
@@ -64,12 +66,24 @@ class WorkerSet:
         self.remote_workers: List = []
         self._broadcaster = None  # weight-sync delta plane (lazy)
         if num_workers > 0:
+            if worker_state.mode() == worker_state.SCRIPT_MODE:
+                self._build_worker_kernels()
             remote_cls = ray_tpu_torch.remote(RolloutWorker)
             for i in range(num_workers):
                 self.remote_workers.append(
                     self._make_remote_worker(remote_cls, i + 1))
             # Block until all workers are constructed.
             ray_tpu_torch.get([w.ping.remote() for w in self.remote_workers])
+
+    def _build_worker_kernels(self) -> None:
+        """On a card, build the kernels the remote workers' policies
+        launch (the local worker's policy's), before any worker process
+        starts: a worker only loads them."""
+        policy = self.local_worker.policy
+        kernels = policy.action_kernels()
+        if kernels and policy.device.type == "cuda":
+            from ..._private import cuda_build
+            cuda_build.build_all(kernels)
 
     def _make_remote_worker(self, remote_cls, index: int):
         cfg = self._config

@@ -26,6 +26,12 @@ class Policy:
         """Returns (actions, state_out, extra_fetches)."""
         raise NotImplementedError
 
+    def action_kernels(self) -> list:
+        """The hand kernels (`CudaKernel`s) that `compute_actions`
+        launches on the card: a rollout worker's process only loads
+        them, so its driver builds these first."""
+        return []
+
     def compute_single_action(self, obs, state=None, explore=True):
         pre = getattr(self, "preprocessor", None)
         if pre is not None and not getattr(pre, "is_identity", True):

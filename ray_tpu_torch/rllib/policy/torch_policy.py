@@ -231,6 +231,9 @@ class TorchPolicy(Policy):
     # ------------------------------------------------------------------
     # rollout inference
     # ------------------------------------------------------------------
+    def action_kernels(self) -> list:
+        return [self.dist_class.STEP_KERNEL]
+
     def compute_actions(self, obs_batch, state_batches=None, explore=True,
                         prev_action_batch=None, prev_reward_batch=None):
         obs = self._to_device(obs_batch)

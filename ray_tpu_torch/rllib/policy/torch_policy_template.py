@@ -19,11 +19,16 @@ from .torch_policy import TorchPolicy
 def build_torch_policy(name: str,
                        loss_fn: Callable,
                        loss_reduction: str,
-                       get_default_config: Optional[Callable] = None):
+                       get_default_config: Optional[Callable] = None,
+                       *,
+                       module: str):
     """Returns a TorchPolicy subclass named `name`. `loss_reduction`
     ("sum" or "mean") declares how `loss_fn` reduces over rows: the
     data-parallel gradient exchange divides by the world size only for
-    "mean" (`TorchPolicy._exchange_gradients`)."""
+    "mean" (`TorchPolicy._exchange_gradients`). The class belongs to
+    `module` (the caller's `__name__`) under `name`: the caller binds it
+    to `name` at module level, so that plain pickle ships it by
+    reference (a remote rollout worker gets it so)."""
 
     def __init__(self, observation_space, action_space, config):
         cfg = deep_merge(
@@ -32,4 +37,5 @@ def build_torch_policy(name: str,
         TorchPolicy.__init__(self, observation_space, action_space, cfg,
                              loss_fn=loss_fn, loss_reduction=loss_reduction)
 
-    return type(name, (TorchPolicy,), {"__init__": __init__})
+    return type(name, (TorchPolicy,), {
+        "__init__": __init__, "__module__": module, "__qualname__": name})

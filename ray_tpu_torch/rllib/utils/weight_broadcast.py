@@ -5,7 +5,10 @@ The port's own copy of `ray_tpu/rllib/utils/weight_broadcast.py`. It
 wraps `_private/weight_sync.WeightSyncEncoder` with:
 
 - one encode + one `ray_tpu_torch.put` per learner update, never per
-  worker;
+  worker. A new version drops the refs of the one it supersedes, and
+  the object store frees each old payload as soon as no `set_weights`
+  call in flight holds it (its submitter pins it until the call
+  returns), so the store holds about one version's bytes;
 - per-worker last-shipped versions, so a worker that already holds the
   current broadcast is never re-sent it;
 - delta-vs-full routing per worker: a worker whose last-shipped version
@@ -16,8 +19,7 @@ wraps `_private/weight_sync.WeightSyncEncoder` with:
   `TaskPool`; a ``stale`` ack (receiver base mismatch) forgets that
   worker's version and re-ships the full payload at once.
 
-The fleet's join and removal paths and the chaos hooks belong to the
-multi-process runtime.
+The fleet's join and removal paths and the chaos hooks are not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def _is_stale(status) -> bool:
 class WeightBroadcaster:
     def __init__(self, get_weights: Callable, codec: str = "auto"):
         self._get_weights = get_weights
-        # One shard: local mode has no wire for shards to stripe over.
+        # One shard: the port's runtime runs on one node, with no wire
+        # for shards to stripe over.
         self.encoder = weight_sync.WeightSyncEncoder(codec=codec)
         self._worker_versions: Dict = {}
         self._payload_refs = None

@@ -118,7 +118,8 @@ def test_async_optimizer_with_workers(port_local):
 
 @pytest.mark.parametrize("codec", ["full", "auto"])
 def test_workers_follow_the_full_codec(port_local, codec):
-    # "auto" is the full codec under the local-mode runtime.
+    # "auto" is the full codec under the local-mode runtime (q8_delta on
+    # the multi-process one, `test_torch_impala_procs.py`).
     t = IMPALATrainer(config=_cartpole_config(weight_sync_codec=codec,
                                               num_workers=1))
     try:
@@ -147,7 +148,10 @@ def test_no_weight_plane_without_workers(port_local):
 
 
 def test_remote_workers_need_the_local_runtime():
-    with pytest.raises(RuntimeError, match=r"init\(local_mode=True\)"):
+    """Remote workers need a runtime (local mode, as in this module, or
+    the multi-process one of `test_torch_impala_procs.py`): without one
+    the trainer refuses before it builds anything."""
+    with pytest.raises(RuntimeError, match=r"ray_tpu_torch\.init\(\)"):
         IMPALATrainer(config=_cartpole_config())
 
 

@@ -1,9 +1,11 @@
 """The port stands alone: importing it, and training IMPALA with a
-remote worker on its local-mode runtime, loads no JAX, no `ray_tpu`, no
-`cloudpickle` and no `lz4`; asking for the card where there is none
-raises instead of falling back to the CPU. The import check runs in a
-fresh interpreter (this test process has JAX loaded by the JAX
-package's tests)."""
+remote worker on its local-mode runtime and on its multi-process runtime
+(the worker's own process included, started through the worker entry
+point `ray_tpu_torch._private.default_worker`), loads no JAX, no
+`ray_tpu`, no `cloudpickle` and no `lz4`; asking for the card where
+there is none raises instead of falling back to the CPU. The import
+check runs in a fresh interpreter (this test process has JAX loaded by
+the JAX package's tests)."""
 
 import os
 import subprocess
@@ -51,6 +53,13 @@ import ray_tpu_torch._private.local_mode
 import ray_tpu_torch._private.weight_sync
 import ray_tpu_torch.rllib.utils.weight_broadcast
 import ray_tpu_torch.rllib.evaluation.worker_set
+import ray_tpu_torch._private.default_worker
+import ray_tpu_torch._private.head
+import ray_tpu_torch._private.node
+import ray_tpu_torch._private.object_store
+import ray_tpu_torch._private.protocol
+import ray_tpu_torch._private.runtime
+import ray_tpu_torch._private.task_spec
 from ray_tpu_torch.rllib.agents.registry import get_trainer_class
 get_trainer_class("SAC")
 from ray_tpu_torch.rllib.agents.sac import SACPolicy
@@ -76,6 +85,22 @@ t = IMPALATrainer(config={"env": "CartPole-v0", "num_workers": 1,
 t.train()
 t.stop()
 ray_tpu_torch.shutdown()
+# The multi-process runtime: the worker is a process of its own.
+sys.path.insert(0, "tests")
+import torch_runtime_program
+ray_tpu_torch.init(num_cpus=2)
+t = IMPALATrainer(config={"env": "CartPole-v0", "num_workers": 1,
+                          "rollout_fragment_length": 10,
+                          "train_batch_size": 20, "min_iter_time_s": 0,
+                          "model": {"fcnet_hiddens": [8]}, "device": "cpu"})
+t.train()
+w = t.workers.remote_workers[0]
+info = ray_tpu_torch.get(w.apply.remote(
+    torch_runtime_program.rollout_worker_process, list(BANNED)))
+assert info["pid"] != __import__("os").getpid(), info
+print("WORKER_BANNED=" + ",".join(info["modules"]))
+t.stop()
+ray_tpu_torch.shutdown()
 banned = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print("BANNED=" + ",".join(banned))
 """
@@ -86,7 +111,8 @@ def test_import_loads_no_jax_and_no_ray_tpu():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr
-    assert "BANNED=\n" in out.stdout, out.stdout
+    assert "WORKER_BANNED=\n" in out.stdout, out.stdout
+    assert "\nBANNED=\n" in out.stdout, out.stdout
 
 
 @pytest.fixture
@@ -143,13 +169,13 @@ sys.exit(chip_smoke.main())
 """
 
 
-@pytest.mark.parametrize("mode", [[], ["workers"]],
-                         ids=["all-phases", "workers"])
+@pytest.mark.parametrize("mode", [[], ["workers"], ["procs"]],
+                         ids=["all-phases", "workers", "procs"])
 def test_chip_smoke_loads_no_jax_and_needs_a_card(no_card, mode):
     """`chip_smoke.py` and the port modules it drives load no JAX, no
     `ray_tpu`, no `cloudpickle` and no `lz4`; without a card the script
     exits non-zero and prints no result line (with no argument and in
-    its `workers` mode)."""
+    its `workers` and `procs` modes)."""
     out = subprocess.run(
         [sys.executable, "-c", _SMOKE_PROBE, "--", *mode], cwd=REPO,
         capture_output=True, text=True, timeout=120,

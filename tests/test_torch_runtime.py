@@ -5,8 +5,9 @@ a task's error re-raised by `get`, `kill` then `ActorDiedError`, a
 named actor, multiple returns and the task records) runs through
 `ray_tpu.init(local_mode=True)` and through
 `ray_tpu_torch.init(local_mode=True)`: the two give equal results. The
-port's runtime needs no `cloudpickle`, leaves nothing behind at
-`shutdown`, and refuses the multi-process mode it does not have.
+port's runtime needs no `cloudpickle` and leaves nothing behind at
+`shutdown`; `init()` without `local_mode` starts the multi-process
+runtime instead (`test_torch_runtime_procs.py` runs the program on it).
 """
 
 import sys
@@ -148,8 +149,20 @@ def test_values_live_as_long_as_their_ref(port_local):
 
 
 def test_init_refuses_the_multi_process_runtime():
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ray_tpu_torch.init()
+    """`init()` without `local_mode` is no longer refused: it starts the
+    multi-process runtime (the head in this process; workers start on
+    demand), with the resources asked for. Either runtime refuses a
+    second `init`."""
+    from ray_tpu_torch._private import worker_state
+    ray_tpu_torch.init(num_cpus=2, resources={"GPU": 3, "custom": 1})
+    try:
+        assert worker_state.mode() == worker_state.SCRIPT_MODE
+        assert ray_tpu_torch.cluster_resources() == {
+            "CPU": 2.0, "GPU": 3.0, "custom": 1.0}
+        with pytest.raises(RuntimeError, match="called twice"):
+            ray_tpu_torch.init(local_mode=True)
+    finally:
+        ray_tpu_torch.shutdown()
     assert not ray_tpu_torch.is_initialized()
     with pytest.raises(RuntimeError, match="called twice"):
         ray_tpu_torch.init(local_mode=True)
